@@ -9,12 +9,17 @@ latentblending_tpu/models/layers.py behind `_use_flash_attention`:
 - K3, `VAEAttention.__call__`: the VAE mid block's single head of d=512,
   f32 (512²: [chunk, 4096, 1, 512]).
 
-Both are one template in csrc/attention.cu (online-softmax forward, f32
-accumulation, 1/√d scale, [B, L, H, d] layout in and out). On the H100
-the work is compute-bound (~4·L·d flops per q/k/v element); this first
-version runs on the CUDA cores and keeps memory O(L·tile) by never
-writing the [B,H,L,L] logits, with K/V tiles staged in shared memory and
-the output accumulators in registers.
+Both are online-softmax (flash) forwards on the tensor cores, with f32
+accumulation, a 1/√d scale and the [B, L, H, d] layout in and out; they
+never write the [B,H,L,L] logits, so memory stays O(L·tile):
+
+- K2, csrc/attention_d64_bf16.cu: warpgroup MMA (wgmma) on bf16, Q and
+  K/V tiles loaded by TMA, softmax and P (bf16) kept in registers; query
+  tiles of 64 rows, key tiles of 128 rows.
+- K3, csrc/attention_d512_f32.cu: mma.sync TF32 in three passes (3xTF32,
+  hi/lo operand split: ~f32 accuracy), d split across a 2-CTA cluster
+  that exchanges partial scores through distributed shared memory; query
+  and key tiles of 64 rows, one head only.
 
 `flash_attention` takes CUDA tensors to the kernel (or raises) and CPU
 tensors to `attention_reference`; nothing falls back from one to the other.
@@ -32,8 +37,9 @@ _KERNELS = {
     (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "launches_self"),
     (512, torch.float32): ("lb_attention_fwd_d512_f32", "launches_vae"),
 }
-# the kernels tile the sequence in blocks of 64 (d=64) and 16/32 (d=512)
-_SEQ_MULTIPLE = 64
+# head dim -> the sequence multiple the kernel's tiles need: K2 64-row
+# query and 128-row key tiles, K3 64-row query and key tiles
+_SEQ_MULTIPLE = {64: 128, 512: 64}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None) -> torch.Tensor:
@@ -60,10 +66,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("flash_attention: q, k, v must share shape and dtype (self-attention)")
     if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q, k and v must be on the same CUDA device")
-    if L % _SEQ_MULTIPLE:
-        raise ValueError(f"flash_attention: sequence length {L} is not a multiple of {_SEQ_MULTIPLE}")
+    if L % _SEQ_MULTIPLE[D]:
+        raise ValueError(f"flash_attention: sequence length {L} is not a multiple of {_SEQ_MULTIPLE[D]}")
+    if D == 512 and H != 1:
+        raise ValueError(f"flash_attention: the d=512 kernel takes one head, not {H}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must start on a 16-byte boundary (TMA / cp.async loads)")
     from latentblending_tpu_torch.ops import _build
 
     name, counter = _KERNELS[key]

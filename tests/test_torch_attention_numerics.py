@@ -1,0 +1,165 @@
+"""The arithmetic of the port's two attention kernels, emulated on the CPU
+with plain tensor code, held against the plain version
+(`attention_reference`) and `jax.nn.dot_product_attention`.
+
+The CUDA kernels cannot run here, so these tests show that the rounding
+each kernel does fits the bounds `chip_smoke.py` holds it to on the card:
+
+- K2 (csrc/attention_d64_bf16.cu): bf16 q/k/v, scores in f32, the online
+  softmax over 128-key tiles (exp2 with log2(e)/sqrt(d) folded in), P
+  rounded to bf16 before P V, the row sum from the unrounded P, the output
+  rounded to bf16. Bound: 2e-2 max abs against the f32 result.
+- K3 (csrc/attention_d512_f32.cu): f32 q/k/v, both products in 3xTF32 (hi
+  = x rounded to nearest TF32, lo = x - hi truncated to TF32 as the tensor
+  core reads it; hi*hi plus the two cross terms summed apart), the online
+  softmax over 64-key tiles. Bound: 1e-4 * max |f32 result|.
+
+Inputs come from numpy seeds; the peaked cases scale q by 4 so that the
+running max is rescaled across tiles."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from latentblending_tpu_torch.ops import attention as tattn
+
+LOG2E = 1.4426950408889634
+K2_BK = 128
+K3_BK = 64
+K2_ABS_BOUND = 2e-2
+K3_REL_BOUND = 1e-4
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to nearest TF32 (10 mantissa bits, ties away from zero)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """Truncate f32 to TF32 (what the tensor core reads of an f32 operand)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32_round(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel computes it: hi*hi, plus the cross terms summed
+    in their own f32 accumulator."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def _matmul_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32_round(a) @ _tf32_round(b)
+
+
+def _online_attention(q, k, v, bk, scores, pv):
+    """Flash forward over bk-key tiles for one (batch, head): q, k, v [L, d]
+    f32; scores(q, k_tile) and pv(p, v_tile) are the kernel's products."""
+    L, d = q.shape
+    scale_log2 = d ** -0.5 * LOG2E
+    m = torch.full((L,), -torch.inf)
+    l = torch.zeros(L)
+    o = torch.zeros(L, d)
+    for j0 in range(0, L, bk):
+        s = scores(q, k[j0:j0 + bk])
+        m_new = torch.maximum(m, s.max(dim=1).values * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new[:, None])
+        l = l * alpha + p.sum(dim=1)
+        o = o * alpha[:, None] + pv(p, v[j0:j0 + bk])
+        m = m_new
+    return o / l[:, None]
+
+
+def _per_head(fn, q, k, v):
+    """Apply fn over the (batch, head) pairs of [B, L, H, d] tensors."""
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[2]):
+            out[b, :, h] = fn(q[b, :, h], k[b, :, h], v[b, :, h])
+    return out
+
+
+def k2_emulation(q, k, v):
+    """K2's arithmetic on bf16 q/k/v [B, L, H, 64] → bf16."""
+    q, k, v = q.float(), k.float(), v.float()
+    fn = lambda q_, k_, v_: _online_attention(  # noqa: E731
+        q_, k_, v_, K2_BK, lambda a, b: a @ b.T, lambda p, vt: p.bfloat16().float() @ vt)
+    return _per_head(fn, q, k, v).bfloat16()
+
+
+def k3_emulation(q, k, v, pv_passes: int = 3):
+    """K3's arithmetic on f32 q/k/v [B, L, 1, 512]; pv_passes=1 gives the
+    single-TF32-pass P V the kernel does not use."""
+    pv_mm = _matmul_3xtf32 if pv_passes == 3 else _matmul_1xtf32
+    fn = lambda q_, k_, v_: _online_attention(  # noqa: E731
+        q_, k_, v_, K3_BK, lambda a, b: _matmul_3xtf32(a, b.T), pv_mm)
+    return _per_head(fn, q, k, v)
+
+
+def _inputs(shape, seed, peak):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    return q * peak, k, v
+
+
+def _jax_attention(q, k, v):
+    return np.asarray(jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)), np.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 2, 64), (1, 1024, 2, 64)])
+@pytest.mark.parametrize("peak", [1.0, 4.0])
+def test_k2_arithmetic_fits_its_bound(shape, peak):
+    """K2 emulation vs the f32 plain result and JAX on the same bf16 inputs:
+    max abs error <= 2e-2 (bf16 P and output rounding of values of order 1)."""
+    q, k, v = _inputs(shape, 20 + shape[1], peak)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = k2_emulation(tq, tk, tv).float()
+    want = tattn.attention_reference(tq.float(), tk.float(), tv.float())
+    assert (got - want).abs().max().item() <= K2_ABS_BOUND
+    jq, jk, jv = (x.float().numpy() for x in (tq, tk, tv))
+    assert np.abs(got.numpy() - _jax_attention(jq, jk, jv)).max() <= K2_ABS_BOUND
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 1, 512), (1, 1024, 1, 512)])
+@pytest.mark.parametrize("peak", [1.0, 4.0])
+def test_k3_arithmetic_fits_its_bound(shape, peak):
+    """K3 emulation (3xTF32 for both products) vs the f32 plain result and
+    JAX: max abs error <= 1e-4 * max |f32 result|."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(shape, 30 + shape[1], peak))
+    got = k3_emulation(q, k, v)
+    want = tattn.attention_reference(q, k, v)
+    bound = K3_REL_BOUND * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bound
+    assert np.abs(got.numpy() - _jax_attention(q.numpy(), k.numpy(), v.numpy())).max() <= bound
+
+
+def test_k3_single_tf32_pass_for_pv_does_not_fit():
+    """Why P V is split too: with one TF32 pass for P V (scores still in
+    3xTF32), the peaked case leaves the 1e-4 relative bound, while the
+    kernel's 3xTF32 stays well inside it."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 512, 1, 512), 41, 4.0))
+    want = tattn.attention_reference(q, k, v)
+    bound = K3_REL_BOUND * want.abs().max().item()
+    err1 = (k3_emulation(q, k, v, pv_passes=1) - want).abs().max().item()
+    err3 = (k3_emulation(q, k, v) - want).abs().max().item()
+    assert err1 > bound
+    assert err3 < bound / 10
+
+
+def test_tf32_split_rounds_as_the_kernel():
+    """hi is round-to-nearest (ties away) at 10 mantissa bits; hi + lo keeps
+    x to ~2^-21 relative."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.14159265])
+    hi, lo = _split(x)
+    assert hi[0].item() == 1.0 and hi[4].item() == 1.0
+    assert hi[1].item() == 1.0 + 2 ** -10 and hi[3].item() == -(1.0 + 2 ** -10)  # ties away from zero
+    assert hi[2].item() == 1.0 + 2 ** -9
+    assert ((hi + lo - x).abs() <= x.abs() * 2 ** -21).all()

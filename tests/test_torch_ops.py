@@ -186,8 +186,9 @@ def test_flash_dispatch_rules(monkeypatch):
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu():
     """Each CUDA kernel against its plain version on the card, at the main
-    path's shapes (bounds as in chip_smoke.py): K1 bf16 2e-2 / f32 1e-5,
-    K2 2e-2 abs vs f32, K3 1e-4 relative."""
+    path's shapes, SDXL-base 1024²'s, and one peaked case each (q scaled by
+    4), with the bounds of chip_smoke.py: K1 bf16 2e-2 / f32 1e-5, K2 2e-2
+    abs vs f32, K3 1e-4 relative."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -199,12 +200,28 @@ def test_kernels_match_plain_versions_on_gpu():
         assert tslerp.launches == n + 1
         want = tslerp.slerp_rows_reference(a, b, f).float()
         assert bool(((got - want).abs() <= bound + bound * want.abs()).all())
-    q, k, v = (torch.randn((2, 1024, 10, 64), generator=g, device="cuda").bfloat16() for _ in range(3))
-    got = tattn.flash_attention(q, k, v).float()
-    assert (got - tattn.attention_reference(q.float(), k.float(), v.float())).abs().max().item() <= 2e-2
-    q, k, v = (torch.randn((1, 4096, 1, 512), generator=g, device="cuda") for _ in range(3))
-    got = tattn.flash_attention(q, k, v)
-    want = tattn.attention_reference(q, k, v)
-    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    k2_cases = [((10, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((2, 4096, 10, 64), 1.0),
+                ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
+    for shape, peak in k2_cases:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        q, k, v = (q * peak).bfloat16(), k.bfloat16(), v.bfloat16()
+        n = tattn.launches_self
+        got = tattn.flash_attention(q, k, v).float()
+        assert tattn.launches_self == n + 1
+        assert (got - tattn.attention_reference(q.float(), k.float(), v.float())).abs().max().item() <= 2e-2, shape
+    k3_cases = [((4, 4096, 1, 512), 1.0), ((2, 4096, 1, 512), 1.0), ((1, 16384, 1, 512), 1.0),
+                ((2, 4096, 1, 512), 4.0)]
+    for shape, peak in k3_cases:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        q = q * peak
+        n = tattn.launches_vae
+        got = tattn.flash_attention(q, k, v)
+        assert tattn.launches_vae == n + 1
+        want = tattn.attention_reference(q, k, v)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), shape
     with pytest.raises(TypeError):
         tattn.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())  # no d=512 bf16 kernel
+    with pytest.raises(ValueError):
+        tattn.flash_attention(*(torch.randn((1, 4096, 2, 512), device="cuda") for _ in range(3)))  # one head only
+    with pytest.raises(ValueError):
+        tattn.flash_attention(*(torch.randn((1, 1088, 1, 64), device="cuda").bfloat16() for _ in range(3)))
