@@ -1,17 +1,32 @@
 """BlendingEngine — the diffusion-tree orchestrator, in PyTorch.
 
-Counterpart of latentblending_tpu/engine/blending.py, per-level path only:
-`run_transition` computes both keyframe trajectories (one batch of 2 when
-they are independent), then each injection level as rounds of sibling stems
-— plan placements by predicted gap splitting, one batched parental mix
-(kernel K1), one batched denoise, one batched VAE decode, one batched NLPD
-pass over all gaps (the measured placement policy). Keyframes come back as
-uint8 [H,W,3] numpy arrays. The fused and segmented single-call transitions,
-LPIPS, image keyframes, movie writing, sessions and the tree cache are not
-ported yet (ROADMAP.md).
+Counterpart of latentblending_tpu/engine/blending.py. `run_transition`
+takes one of two execution shapes, chosen by the JAX package's gate
+(`LB_FUSED`: unset/"auto", "0" or "1", plus the single-level cost model):
+
+- the fused single-level transition (`_run_transition_fused`, the default
+  for a one-level plan): ONE denoise_scan_tree call computes both edges and
+  every stem (kernel K1 for the live parental mix and the crossfeed), then
+  decode → convert → host copy in chunks, in fract order;
+- the per-level path (LB_FUSED=0, a recycled edge 2, or a multi-level
+  plan): both keyframe trajectories (one batch of 2 when they are
+  independent), then each injection level as one round of sibling stems —
+  placements by predicted gap splitting, one batched parental mix (K1),
+  one batched denoise, one batched VAE decode, one batched NLPD pass over
+  all gaps (the measured placement policy).
+
+Keyframes leave the device as uint8 RGB or packed I420 through pinned
+host copies that are still in flight when the transition returns its
+handles (`run_transition_streaming`, `resolve_image`); the last round's
+gap similarities are deferred to `finalize_report`. `run_transition`
+resolves both and returns uint8 [H,W,3] numpy keyframes. The segmented
+multi-level transition, the predictive policy, LPIPS, image keyframes,
+movie writing, sessions and the tree cache are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional
 
@@ -31,6 +46,7 @@ from latentblending_tpu_torch.ops.slerp import slerp_rows
 from latentblending_tpu_torch.profiling import PhaseTimer, TransitionReport
 from latentblending_tpu_torch.runtime.denoise import Conditioning
 from latentblending_tpu_torch.runtime.holder import SDXLHolder
+from latentblending_tpu_torch.video.i420 import to_rgb
 
 
 def _sync(x: torch.Tensor) -> None:
@@ -38,6 +54,65 @@ def _sync(x: torch.Tensor) -> None:
     measures that work (CUDA runs asynchronously to the host)."""
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
+
+
+class _HostCopy:
+    """A device→host copy in flight: a non_blocking copy into a pinned host
+    tensor, and the CUDA event recorded after it. Reading it (np.asarray)
+    waits on the event first, so the host never reads a buffer that is
+    still being written."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, dev: torch.Tensor):
+        self.host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        with torch.cuda.device(dev.device):
+            self.host.copy_(dev, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def __array__(self, dtype=None, copy=None):
+        self.event.synchronize()
+        arr = self.host.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+def _fetch(x: torch.Tensor):
+    """Start the host copy of x: a _HostCopy for a CUDA tensor, while a CPU
+    tensor is its own host copy."""
+    return _HostCopy(x) if x.is_cuda else x
+
+
+def _fetch_chunk() -> int:
+    """Keyframes per decode → convert → host-copy chunk (LB_FETCH_CHUNK)."""
+    return max(1, int(os.environ.get("LB_FETCH_CHUNK", "4")))
+
+
+class _PendingImage:
+    """Placeholder in tree_final_imgs for a keyframe whose uint8 copy is
+    still streaming device→host (resolved at the end of run_transition)."""
+
+    __slots__ = ("batch", "row")
+
+    def __init__(self, batch, row: int):
+        self.batch = batch
+        self.row = row
+
+
+def resolve_image(im, batch_cache: dict) -> np.ndarray:
+    """Materialize a keyframe handle: one host read per shared batch
+    (cached in batch_cache), pass-through for plain arrays.
+
+    Returns the keyframe in its fetch format — uint8 RGB [H,W,3], or a
+    packed I420 plane buffer [H*3/2, W] when the engine shipped keyframes as
+    4:2:0 YCbCr (run_transition_streaming(keyframe_format="i420"))."""
+    if not isinstance(im, _PendingImage):
+        return np.asarray(im)
+    arr = batch_cache.get(id(im.batch))
+    if arr is None:
+        arr = np.asarray(im.batch)
+        batch_cache[id(im.batch)] = arr
+    return arr[im.row]
 
 
 def _parental_mix(p1: torch.Tensor, p2: torch.Tensor, fract: torch.Tensor) -> torch.Tensor:
@@ -81,8 +156,31 @@ class BlendingEngine:
         self._imgs_dev: list = []
         self.text_embedding1 = None
         self.text_embedding2 = None
+        # keyframe device→host format: 'rgb' (uint8 HWC) or 'i420' (packed
+        # 4:2:0 planes, 1.5 B/px; run_transition_streaming selects it)
+        self._keyframe_fmt = "rgb"
+        # the last round's deferred similarity pass, and the previous
+        # streaming transition's last device op (drained before the next)
+        self._sims_pending = None
+        self._queue_tail = None
         self.timer = PhaseTimer()
         self.last_report = TransitionReport()
+
+        # cost model of the fused-vs-per-level gate (seconds). dt_unet_step
+        # and dt_vae are placeholders until measured (turbo engines never
+        # run the speed benchmark); the rest is None until observed
+        self.dt_unet_step = 0.01
+        self.dt_vae = 0.01
+        self._dt_unet_step_measured = False
+        # per-(row,step) cost of the fused scan (every row runs all N steps)
+        self.dt_unet_step_fused: Optional[float] = None
+        # one tiny synced op's wall: the per-round host↔device round trip
+        self.dt_sync: Optional[float] = None
+        # observed per-(row,step) per-level denoise cost by batch size
+        self._dt_step_by_batch: dict[int, float] = {}
+        # fused path's output tail: host wall from the scan landing to the
+        # decode/host-copy/similarity dispatches being issued
+        self._dt_fused_output: Optional[float] = None
 
         self.set_guidance_scale()
         self.set_guidance_rescale()
@@ -94,10 +192,123 @@ class BlendingEngine:
         self.set_num_inference_steps()
         self.set_branching()
 
+    # ------------------------------------------------------------- cost model
+
+    def measure_sync_overhead(self, reps: int = 3, anchor: Optional[torch.Tensor] = None) -> float:
+        """(Re-)measure dt_sync as the MIN of `reps` tiny synchronized
+        round trips (one tiny op, then torch.cuda.synchronize). `anchor` is
+        any 4-D device tensor to chain the tiny op on (default: zeros on the
+        holder's device)."""
+        if anchor is None:
+            anchor = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=self.dh.device)
+        tiny = anchor[:1, :1, :1, :1] + 1.0
+        _sync(tiny)
+        best = None
+        for i in range(max(1, reps)):
+            t0 = time.time()
+            tiny = anchor[:1, :1, :1, :1] + (2.0 + i)
+            _sync(tiny)
+            dt = time.time() - t0
+            best = dt if best is None else min(best, dt)
+        self.dt_sync = best
+        return best
+
+    def predict_transition_time(self, recycled1: bool = False) -> dict:
+        """Cost-model prediction of the next run_transition's blocking wall.
+
+        * fused path (single-level plans): denoise_scan_tree runs EVERY row
+          for all N steps → N·B·dt_fused + the output-dispatch tail.
+        * per-level path: edge steps + Σ(N−idx)·k per round, priced at each
+          round's observed per-(row,step) cost for its batch size, plus
+          decode per keyframe and two sync round trips per measured round.
+
+        Returns {"path", "t_predicted_s", "t_fused_s", "t_fused_multi_s",
+        "t_per_level_s"}; "path" is what the LB_FUSED=auto gate would pick.
+        The segmented multi-level path is not ported: t_fused_multi_s is
+        None."""
+        N = self.num_inference_steps
+        plan_idx = [int(i) for i in self.list_idx_injection]
+        plan_stems = [int(n) for n in self.list_nmb_stems]
+        sync = self.dt_sync or 0.0
+        dt = lambda b: self._dt_step_by_batch.get(b, self.dt_unet_step)  # noqa: E731
+
+        # ---- per-level path: one round per level (each level is one batch)
+        t_pl = N * dt(1) if recycled1 else 2 * N * dt(2)
+        rounds = 0
+        for idx, n in zip(plan_idx, plan_stems):
+            if n > 0:
+                t_pl += (N - idx) * n * dt(n)
+                rounds += 1
+        t_pl += (sum(plan_stems) + 2) * self.dt_vae
+        t_pl += 2.0 * sync * rounds
+
+        # ---- fused path (the gate's structural conditions)
+        t_fused = None
+        if len(plan_idx) == 1 and plan_stems[0] >= 1 and plan_idx[0] >= 1:
+            B = (1 if recycled1 else 2) + plan_stems[0]
+            dtf = self.dt_unet_step_fused if self.dt_unet_step_fused is not None else self.dt_unet_step
+            out = self._dt_fused_output if self._dt_fused_output is not None else sync
+            t_fused = N * B * dtf + out
+
+        gate = os.environ.get("LB_FUSED", "auto")
+        if t_fused is None or gate == "0":
+            path = "per-level"
+        elif gate == "1" or self.dt_sync is None or self.dt_unet_step_fused is None:
+            path = "fused"
+        else:
+            path = "fused" if t_fused <= t_pl else "per-level"
+        return {
+            "path": path,
+            "t_predicted_s": t_pl if path == "per-level" else t_fused,
+            "t_fused_s": t_fused,
+            "t_fused_multi_s": None,
+            "t_per_level_s": t_pl,
+        }
+
+    def planner_calibrated(self, recycled1: bool = False) -> bool:
+        """Whether predict_transition_time's active path has measured inputs
+        (a warm fused run and its output tail; or observed per-batch step
+        costs for every round size plus the sync round trip) instead of
+        placeholder fallbacks."""
+        if self.predict_transition_time(recycled1=recycled1)["path"] == "fused":
+            return self.dt_unet_step_fused is not None and self._dt_fused_output is not None
+        sizes = {1 if recycled1 else 2} | {int(n) for n in self.list_nmb_stems if int(n) > 0}
+        return self.dt_sync is not None and all(b in self._dt_step_by_batch for b in sizes)
+
+    def _fused_predicted_faster(self, recycled1: bool) -> bool:
+        """Auto-gate arbitration (LB_FUSED unset): an uncalibrated engine
+        (no sync measurement or no warm fused run yet) takes the fused path;
+        a calibrated one takes the path the cost model prices lower."""
+        if self.dt_sync is None or self.dt_unet_step_fused is None:
+            return True
+        return self.predict_transition_time(recycled1=recycled1)["path"] != "per-level"
+
+    @staticmethod
+    def _observe(current: Optional[float], sample: float) -> float:
+        """Fold a run-time calibration sample into `current` by MIN: observed
+        walls only deviate up from the steady-state price."""
+        return sample if current is None else min(current, sample)
+
+    def _observe_unet_step(self, sample: float) -> None:
+        """min-fold a per-row UNet step sample into dt_unet_step, treating
+        the constructor's placeholder as never measured."""
+        if self._dt_unet_step_measured:
+            self.dt_unet_step = min(self.dt_unet_step, sample)
+        else:
+            self.dt_unet_step = sample
+            self._dt_unet_step_measured = True
+
     # ------------------------------------------------------------- settings
 
     def set_dimensions(self, size_output: Optional[tuple[int, int]] = None):
+        old = (self.dh.height_img, self.dh.width_img)
         self.dh.set_dimensions(size_output)
+        if (self.dh.height_img, self.dh.width_img) != old:
+            # step and output costs are resolution-specific: drop them
+            self._dt_step_by_batch.clear()
+            self.dt_unet_step_fused = None
+            self._dt_fused_output = None
+            self._dt_unet_step_measured = False
 
     def set_guidance_scale(self, guidance_scale: Optional[float] = None):
         if guidance_scale is None:
@@ -162,6 +373,56 @@ class BlendingEngine:
     def run_transition(self, recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
                        fixed_seeds: Optional[List[int]] = None) -> list:
         """Compute the keyframe transition; returns the uint8 [H,W,3] keyframes."""
+        self._run_transition_core(recycle_img1, recycle_img2, fixed_seeds)
+        with self.timer.phase("keyframe_fetch"):
+            self._resolve_keyframes()
+        self._finalize_report()
+        return self.tree_final_imgs
+
+    def run_transition_streaming(self, recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
+                                 fixed_seeds: Optional[List[int]] = None, keyframe_format: str = "auto") -> list:
+        """Dispatch the whole transition and return the keyframe HANDLES
+        without waiting for their device→host copies.
+
+        The list parallels tree_final_imgs and may hold pending handles;
+        materialize each with resolve_image (one batch_cache per consumer).
+        Then call finalize_report() to land the deferred similarity pass,
+        and resolve_keyframes() if tree_final_imgs should become uint8 RGB.
+
+        keyframe_format: 'rgb' (uint8 HWC), 'i420' (packed 4:2:0 planes,
+        half the bytes), or 'auto' (i420 whenever the dimensions allow it
+        and LB_KEYFRAME_I420 is not '0')."""
+        if keyframe_format == "auto":
+            keyframe_format = "i420" if self._i420_fetch_ok() else "rgb"
+        if keyframe_format not in ("rgb", "i420"):
+            raise ValueError(f"keyframe_format must be 'auto', 'rgb' or 'i420', got {keyframe_format!r}")
+        self._keyframe_fmt = keyframe_format
+        try:
+            self._run_transition_core(recycle_img1, recycle_img2, fixed_seeds)
+        finally:
+            self._keyframe_fmt = "rgb"
+        return list(self.tree_final_imgs)
+
+    def finalize_report(self, sync_sims: bool = True) -> TransitionReport:
+        """Land any deferred similarity pass and seal last_report — the
+        closing half of the run_transition_streaming contract. With
+        sync_sims=False the pending handle goes to
+        last_report.sims_pending (TransitionReport.resolve_sims lands it)
+        and lpips_gaps stays empty until then."""
+        self._finalize_report(sync_sims=sync_sims)
+        return self.last_report
+
+    def resolve_keyframes(self, batch_cache: Optional[dict] = None) -> list:
+        """Materialize tree_final_imgs to uint8 RGB."""
+        self._resolve_keyframes(batch_cache)
+        return self.tree_final_imgs
+
+    @torch.no_grad()
+    def _run_transition_core(self, recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
+                             fixed_seeds: Optional[List[int]] = None):
+        """Everything up to (excluding) keyframe resolution: on exit the tree
+        is final, tree_final_imgs may hold _PendingImage handles and the
+        last round's similarities may still be in flight (_sims_pending)."""
         if self.text_embedding1 is None or self.text_embedding2 is None:
             raise RuntimeError("set both prompts (set_prompt1/2) before run_transition")
         if fixed_seeds is not None:
@@ -170,30 +431,43 @@ class BlendingEngine:
             elif len(fixed_seeds) != 2:
                 raise ValueError("fixed_seeds needs 2 entries")
             self.seed1, self.seed2 = int(fixed_seeds[0]), int(fixed_seeds[1])
-        self._run_transition_core(recycle_img1, recycle_img2)
-        self.tree_final_imgs = [np.asarray(im.cpu()) for im in self.tree_final_imgs]
-        self.last_report.num_keyframes = len(self.tree_final_imgs)
-        self.last_report.lpips_gaps = [float(s) for s in self.tree_similarities]
-        self.last_report.phases = self.timer.summary()
-        self.last_report.wall_s = time.time() - self._t_run0
-        return self.tree_final_imgs
 
-    @torch.no_grad()
-    def _run_transition_core(self, recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False):
+        # drain a previous streaming transition's deferred device tail
+        # outside any phase timer, so the next denoise phase does not absorb it
+        if self._queue_tail is not None:
+            np.asarray(self._queue_tail)
+            self._queue_tail = None
+
         N = self.num_inference_steps
         self._t_run0 = time.time()
         self.timer = PhaseTimer()
         self.last_report = TransitionReport(num_steps=N)
+        self._sims_pending = None
         self.dh.reset_noise_stream((int(self.seed1) * 1_000_003 + int(self.seed2)) & 0x7FFFFFFF)
 
         ok1 = bool(recycle_img1) and self.tree_latents[0] is not None and len(self.tree_latents[0]) == N
         ok2 = bool(recycle_img2) and self.tree_latents[-1] is not None and len(self.tree_latents[-1]) == N
+
+        # the JAX gate also needs stem_batch == 0 and no mesh: the port runs
+        # each level as one batch on one device, so both always hold
+        structural_ok = (
+            not ok2
+            and len(self.list_idx_injection) == 1
+            and int(self.list_nmb_stems[0]) >= 1
+            and int(self.list_idx_injection[0]) >= 1
+        )
+        gate = os.environ.get("LB_FUSED", "auto")
+        if structural_ok and gate != "0" and (gate == "1" or self._fused_predicted_faster(ok1)):
+            self._run_transition_fused(recycled1=ok1)
+            return
+        # a multi-level plan takes the per-level path: the segmented
+        # multi-level fused scan is not ported
+
         if ok1 and ok2:
             list_latents1, list_latents2 = self.tree_latents[0], self.tree_latents[-1]
         elif not ok1 and not ok2 and self.branch1_crossfeed_power == 0.0:
             with self.timer.phase("denoise"):
                 list_latents1, list_latents2 = self._compute_edge_latents_batched()
-                _sync(list_latents2[-1])
         else:
             with self.timer.phase("denoise"):
                 list_latents1 = self.tree_latents[0] if ok1 else self.compute_latents1()
@@ -204,26 +478,219 @@ class BlendingEngine:
         self.tree_fracts = [0.0, 1.0]
         with self.timer.phase("vae_decode"):
             edge_pm1 = self.dh.decode_to_pm1_batched(torch.cat([list_latents1[-1], list_latents2[-1]], dim=0))
-            edge_u8 = self.dh.to_uint8_device(edge_pm1)
-            _sync(edge_u8)
-        self.tree_final_imgs = [edge_u8[0], edge_u8[1]]
+            edge_u8 = _fetch(self._fetch_keyframes_u8(edge_pm1))
+        self.tree_final_imgs = [_PendingImage(edge_u8, 0), _PendingImage(edge_u8, 1)]
         self._imgs_dev = [edge_pm1[0], edge_pm1[1]]
         self.tree_idx_injection = [0, 0]
         self.tree_similarities = self._batched_similarities()
 
-        # each level's stems run as one batched round
-        for nmb_stems, idx_injection in zip(self.list_nmb_stems, self.list_idx_injection):
+        # each level's stems run as one batched round; the last round's
+        # similarities are report-only, so they are deferred
+        n_levels = len(self.list_idx_injection)
+        for s_idx, (nmb_stems, idx_injection) in enumerate(zip(self.list_nmb_stems, self.list_idx_injection)):
             t_lvl = time.time()
-            self._run_stem_round(int(nmb_stems), idx_injection)
+            self._run_stem_round(int(nmb_stems), int(idx_injection), defer_sims=s_idx == n_levels - 1)
             self.last_report.levels.append(
                 {"idx_injection": int(idx_injection), "stems": int(nmb_stems), "wall_s": round(time.time() - t_lvl, 3)}
             )
+
+    def _run_transition_fused(self, recycled1: bool = False):
+        """The whole single-level transition as ONE denoise call.
+
+        denoise_scan_tree computes the edge trajectories and all k stems in
+        one batch: stem rows are pinned to the live parental mix of the edge
+        rows at their injection step (crossfeed coefficient 1.0) and follow
+        the parental crossfeed schedule after — per-stem results equal the
+        per-level path's for deterministic solvers.
+
+        recycled1 (chained transitions): edge 1's stored trajectory rides
+        along as a per-step window instead of being recomputed. branch1
+        crossfeed is expressed the same way: edge 2's mix target is edge 1's
+        entering state (live row or window)."""
+        N = self.num_inference_steps
+        idx_injection = int(self.list_idx_injection[0])
+        k = int(self.list_nmb_stems[0])
+
+        # plan against the virgin two-edge tree: predicted bisection of the
+        # single gap is value-independent, so no measurement is needed
+        win_list = self.tree_latents[0] if recycled1 else None
+        self.tree_fracts = [0.0, 1.0]
+        self.tree_idx_injection = [0, 0]
+        self.tree_similarities = [1.0]
+        placements, _ = self._plan_placements(k, idx_injection)
+        fracts = [f for f, _, _ in placements]
+        # batch rows: [edge1?, edge2, stems...]; edge 1 is a row only when
+        # computed live, else it is the window input
+        n_edges = 1 if recycled1 else 2
+        B = n_edges + k
+        e2 = n_edges - 1  # batch row of edge 2
+        row_of = {0: 0, 1: e2}  # tree row → batch row
+
+        noise2 = self.get_noise(self.seed2)
+        # stem rows need a FINITE placeholder state before their pin
+        # (outputs discarded there); edge starts are the seeded noises
+        if recycled1:
+            lat0 = torch.cat([noise2] * (1 + k), dim=0)
+            cond_fracts = [1.0] + fracts
+            win_stack = torch.cat(list(win_list), dim=0)  # [N,h,w,4]
+            # step i mixes toward trajectory entry i-1; entry 0 is never
+            # read (coefficient 0 at step 0)
+            win_steps = torch.cat([win_stack[:1], win_stack[:-1]], dim=0)
+            win_mask = np.ones((B,), bool)  # parent 1 of every row is edge 1
+            win_mask[e2] = self.branch1_crossfeed_power > 0.0
+        else:
+            noise1 = self.get_noise(self.seed1)
+            lat0 = torch.cat([noise1, noise2] + [noise1] * k, dim=0)
+            cond_fracts = [0.0, 1.0] + fracts
+            win_steps = win_mask = None
+        cond = self._stack_conditionings(cond_fracts)
+        guidance = torch.tensor([self._guidance_at(f) for f in cond_fracts], dtype=torch.float32)
+
+        parent_idx = np.zeros((B, 2), np.int64)  # edges: themselves
+        parent_fract = np.zeros((B,), np.float32)
+        # edge 2's branch1-crossfeed target is edge 1 at fract 0
+        parent_idx[e2] = (0, 0)
+        for r, (f, b1, b2) in enumerate(placements):
+            # single-level plan: the parents are the two edges
+            parent_idx[n_edges + r] = (row_of[b1], row_of[b2])
+            parent_fract[n_edges + r] = (f - self.tree_fracts[b1]) / (self.tree_fracts[b2] - self.tree_fracts[b1])
+        base = parental_crossfeed_coeffs(
+            N, idx_injection, self.parental_crossfeed_power,
+            self.parental_crossfeed_range, self.parental_crossfeed_decay,
+        )
+        coeffs = np.zeros((N, B), np.float32)
+        coeffs[:, n_edges:] = np.asarray(base, np.float32)[:, None]
+        coeffs[:idx_injection, n_edges:] = 0.0
+        # the pin: fraction 1.0 starts the stem exactly from the parental
+        # mix state idx-1
+        coeffs[idx_injection, n_edges:] = 1.0
+        if self.branch1_crossfeed_power > 0.0:
+            coeffs[:, e2] = branch1_crossfeed_coeffs(
+                N, self.branch1_crossfeed_power, self.branch1_crossfeed_range, self.branch1_crossfeed_decay,
+            )
+        # per-row pin step: edges are real from step 0, stems from their pin
+        pins = np.zeros((B,), np.int64)
+        pins[n_edges:] = idx_injection
+        with self.timer.phase("denoise"):
+            t0 = time.time()
+            traj = self.dh.run_tree_batched(
+                cond, lat0, parent_idx, parent_fract, coeffs, guidance,
+                win_steps=win_steps, win_mask=win_mask, pin_steps=pins,
+            )
+            _sync(traj)
+            if self.dh.last_run_was_warm:
+                # every row runs all N steps: a calibration of its own,
+                # apart from the per-level path's
+                self.dt_unet_step_fused = self._observe(self.dt_unet_step_fused, (time.time() - t0) / (N * B))
+
+        # ONE decode pipeline for edges and stems; a recycled edge 1's final
+        # latent joins it so its keyframe is rebuilt (swap_forward cleared it)
+        t_out0 = time.time()
+        sorted_stems = sorted(range(k), key=lambda i: fracts[i])
+        finals = traj[-1] if not recycled1 else torch.cat([win_stack[-1:], traj[-1]], dim=0)
+        # decode row of: edge1 = 0, edge2 = e2 + off, stem i = n_edges + off + i
+        off = 1 if recycled1 else 0
+        order_rows = [0] + [n_edges + off + i for i in sorted_stems] + [e2 + off]
+        with self.timer.phase("vae_decode"):
+            pm1_of, chunk_of = self._decode_fetch_chunks(finals, order_rows)
+
+        M = N - idx_injection
+        list1 = list(win_list) if recycled1 else [traj[i, 0:1] for i in range(N)]
+        list2 = [traj[i, e2 : e2 + 1] for i in range(N)]
+        self.tree_latents = (
+            [list1]
+            + [
+                [None] * idx_injection + [traj[idx_injection + j, n_edges + i : n_edges + 1 + i] for j in range(M)]
+                for i in sorted_stems
+            ]
+            + [list2]
+        )
+        self.tree_fracts = [0.0] + [fracts[i] for i in sorted_stems] + [1.0]
+        self.tree_idx_injection = [0] + [idx_injection] * k + [0]
+        self.tree_final_imgs = [_PendingImage(*chunk_of[row]) for row in order_rows]
+        self._imgs_dev = [pm1_of[row] for row in order_rows]
+        with self.timer.phase("similarity"):
+            self._sims_pending = _fetch(self._dispatch_similarities())
+        if self.dh.last_run_was_warm:
+            # host wall of the output dispatches (warm runs only)
+            self._dt_fused_output = self._observe(self._dt_fused_output, time.time() - t_out0)
+        self.last_report.levels.append({"idx_injection": idx_injection, "stems": k, "fused": True,
+                                        "recycled": recycled1})
+
+    def _decode_fetch_chunks(self, finals: torch.Tensor, order_rows: list[int]):
+        """Decode → convert → host copy in chunks of LB_FETCH_CHUNK rows, in
+        fract (left-to-right) order, so the first keyframes can be consumed
+        while later chunks still decode. Returns ({row: pm1_row},
+        {row: (handle, index in the chunk)})."""
+        csize = _fetch_chunk()
+        pm1_of: dict[int, torch.Tensor] = {}
+        chunk_of: dict[int, tuple] = {}
+        for j0 in range(0, len(order_rows), csize):
+            rows = order_rows[j0 : j0 + csize]
+            pm1 = self.dh.decode_to_pm1_batched(finals[rows])
+            chunk = _fetch(self._fetch_keyframes_u8(pm1))
+            for r, row in enumerate(rows):
+                pm1_of[row] = pm1[r]
+                chunk_of[row] = (chunk, r)
+        return pm1_of, chunk_of
+
+    def _i420_fetch_ok(self) -> bool:
+        """Whether keyframes can ship as packed I420 planes: opt-out via
+        LB_KEYFRAME_I420=0; the packing needs H % 4 == 0 and even W."""
+        return (
+            os.environ.get("LB_KEYFRAME_I420", "auto") != "0"
+            and self.dh.height_img % 4 == 0
+            and self.dh.width_img % 2 == 0
+        )
+
+    def _fetch_keyframes_u8(self, imgs_pm1: torch.Tensor) -> torch.Tensor:
+        """Device-side uint8 keyframe batch in the active fetch format: RGB
+        [B,H,W,3] or packed I420 [B,H*3/2,W]."""
+        if self._keyframe_fmt == "i420":
+            return self.dh.to_i420_device(imgs_pm1)
+        return self.dh.to_uint8_device(imgs_pm1)
+
+    def _resolve_keyframes(self, batch_cache: Optional[dict] = None):
+        """Materialize every pending keyframe (one host read per shared
+        batch; copies already in batch_cache are reused), converting I420
+        keyframes so tree_final_imgs is always uint8 RGB."""
+        batch_cache = {} if batch_cache is None else batch_cache
+        self.tree_final_imgs = [
+            to_rgb(resolve_image(im, batch_cache)) if isinstance(im, _PendingImage) else im
+            for im in self.tree_final_imgs
+        ]
+
+    def _finalize_report(self, sync_sims: bool = True):
+        deferred = False
+        if self._sims_pending is not None:
+            if sync_sims:
+                with self.timer.phase("similarity_sync"):
+                    self.tree_similarities = np.asarray(self._sims_pending, np.float64).tolist()
+            else:
+                self.last_report.sims_pending = self._sims_pending
+                # this transition's last device op: the next one drains it
+                # outside its phase timers
+                self._queue_tail = self._sims_pending
+                self.tree_similarities = []
+                deferred = True
+            self._sims_pending = None
+        self.last_report.num_keyframes = len(self.tree_final_imgs)
+        if not deferred:
+            self.last_report.lpips_gaps = [float(s) for s in self.tree_similarities]
+        self.last_report.phases = self.timer.summary()
+        self.last_report.wall_s = time.time() - self._t_run0
 
     def compute_latents1(self) -> list:
         """First keyframe trajectory (single branch)."""
         cond = self.get_mixed_conditioning(0.0)
         self.dh.guidance_scale = self.guidance_scale
+        t0 = time.time()
         out = self.dh.run_diffusion(cond, self.get_noise(self.seed1), idx_start=0)
+        _sync(out[-1])
+        if self.dh.last_run_was_warm:
+            sample = (time.time() - t0) / self.num_inference_steps
+            self._observe_unet_step(sample)
+            self._dt_step_by_batch[1] = self._observe(self._dt_step_by_batch.get(1), sample)
         self.tree_latents[0] = out
         return out
 
@@ -250,8 +717,14 @@ class BlendingEngine:
         lat0 = torch.cat([self.get_noise(self.seed1), self.get_noise(self.seed2)], dim=0)
         cond = self._stack_conditionings([0.0, 1.0])
         g = torch.tensor([self._guidance_at(0.0), self._guidance_at(1.0)], dtype=torch.float32)
-        traj = self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g)
         N = self.num_inference_steps
+        t0 = time.time()
+        traj = self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g)
+        _sync(traj)
+        if self.dh.last_run_was_warm:
+            sample = (time.time() - t0) / (2 * N)
+            self._observe_unet_step(sample)
+            self._dt_step_by_batch[2] = self._observe(self._dt_step_by_batch.get(2), sample)
         return [traj[i, 0:1] for i in range(N)], [traj[i, 1:2] for i in range(N)]
 
     # ------------------------------------------------------ stem-round logic
@@ -289,9 +762,11 @@ class BlendingEngine:
         zero = torch.zeros_like(entries[-1][0])
         return torch.stack([zero if e is None else e[0] for e in entries[: self.num_inference_steps]], dim=0)
 
-    def _run_stem_round(self, k: int, idx_injection: int):
+    def _run_stem_round(self, k: int, idx_injection: int, defer_sims: bool = False):
         """Plan, compute and insert k sibling stems as one batched denoise +
-        decode + similarity round."""
+        decode + similarity round. With defer_sims the gap-similarity pass
+        is dispatched but left in flight (_sims_pending): only valid for the
+        final round, whose similarities no placement consumes."""
         N = self.num_inference_steps
         placements, _ = self._plan_placements(k, idx_injection)
         p1 = torch.stack([self._branch_traj_array(b1) for _, b1, _ in placements], dim=1)
@@ -308,27 +783,44 @@ class BlendingEngine:
         cond = self._stack_conditionings([f for f, _, _ in placements])
         guidance = torch.tensor([self._guidance_at(f) for f, _, _ in placements], dtype=torch.float32)
         with self.timer.phase("denoise"):
+            t0 = time.time()
             traj = self.dh.run_diffusion_batched(
                 cond, mix_traj[idx_injection - 1], idx_start=idx_injection, mix_traj=mix_traj,
                 mixing_coeffs=coeffs, guidance_scale=guidance,
             )  # [N - idx_injection, k, h, w, 4]
             _sync(traj)
+            if self.dh.last_run_was_warm:
+                # observed per-(row,step) cost at THIS batch size
+                self._dt_step_by_batch[k] = self._observe(
+                    self._dt_step_by_batch.get(k), (time.time() - t0) / ((N - idx_injection) * k)
+                )
+        order = sorted(range(k), key=lambda i: placements[i][0])
         with self.timer.phase("vae_decode"):
             imgs_pm1 = self.dh.decode_to_pm1_batched(traj[-1])
-            u8 = self.dh.to_uint8_device(imgs_pm1)
-            _sync(u8)
+            u8_dev = self._fetch_keyframes_u8(imgs_pm1)
+            # host copies in chunks ordered by fract
+            csize = _fetch_chunk()
+            chunk_of: dict[int, tuple] = {}
+            for j0 in range(0, k, csize):
+                rows = order[j0 : j0 + csize]
+                chunk = _fetch(u8_dev if rows == list(range(k)) else u8_dev[rows])
+                for r, i in enumerate(rows):
+                    chunk_of[i] = (chunk, r)
         M = N - idx_injection
         with self.timer.phase("similarity"):
-            for i in sorted(range(k), key=lambda i: placements[i][0]):
+            for i in order:
                 fract_mixing = placements[i][0]
                 b_parent1, _ = get_closest_idx(fract_mixing, self.tree_fracts)
                 idx_insert = b_parent1 + 1
                 self.tree_latents.insert(idx_insert, [None] * idx_injection + [traj[j, i : i + 1] for j in range(M)])
-                self.tree_final_imgs.insert(idx_insert, u8[i])
+                self.tree_final_imgs.insert(idx_insert, _PendingImage(*chunk_of[i]))
                 self._imgs_dev.insert(idx_insert, imgs_pm1[i])
                 self.tree_fracts.insert(idx_insert, fract_mixing)
                 self.tree_idx_injection.insert(idx_insert, idx_injection)
-            self.tree_similarities = self._batched_similarities()
+            if defer_sims:
+                self._sims_pending = _fetch(self._dispatch_similarities())
+            else:
+                self.tree_similarities = self._batched_similarities()
 
     # ----------------------------------------------------- conditioning mix
 
@@ -380,9 +872,14 @@ class BlendingEngine:
 
     # ------------------------------------------------------------- similarity
 
-    def _batched_similarities(self) -> list[float]:
-        """All adjacent-keyframe NLPD distances in one batched call."""
+    def _dispatch_similarities(self) -> Optional[torch.Tensor]:
+        """All adjacent-keyframe NLPD distances as one batched call, left on
+        the device ([K-1]); None with fewer than 2 keyframes."""
         if len(self._imgs_dev) < 2:
-            return []
-        d = self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]), torch.stack(self._imgs_dev[1:]))
-        return d.double().cpu().tolist()
+            return None
+        return self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]), torch.stack(self._imgs_dev[1:]))
+
+    def _batched_similarities(self) -> list[float]:
+        """All adjacent-keyframe NLPD distances, on the host."""
+        d = self._dispatch_similarities()
+        return [] if d is None else d.double().cpu().tolist()

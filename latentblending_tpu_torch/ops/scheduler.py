@@ -197,7 +197,7 @@ def dpmpp_2m_step(
     sigma_prev: torch.Tensor,
     sigma: torch.Tensor,
     sigma_next: torch.Tensor,
-    use_second: bool,  # apply the 2nd-order correction
+    use_second,  # bool, or a bool tensor broadcastable to sample (per row)
 ) -> torch.Tensor:
     """One DPM-Solver++(2M) update in σ-space (Lu et al. 2023,
     arXiv:2211.01095, as in k-diffusion's sample_dpmpp_2m):
@@ -207,7 +207,8 @@ def dpmpp_2m_step(
       x_next = (σ_next/σ)·x − expm1(−h)·D
 
     The first executed step and the terminal σ_next = 0 step use the
-    1st-order update (D = x0_i)."""
+    1st-order update (D = x0_i). A tensor `use_second` selects the order
+    per element (the fused tree scan gates it per row by pin step)."""
     x = sample.float()
     s = sigma.float()
     sn = sigma_next.float()
@@ -218,7 +219,10 @@ def dpmpp_2m_step(
     h_last = torch.log(sp) - torch.log(s)
     r = h_last / torch.clamp(h, min=1e-20)
     coeff = 1.0 / torch.clamp(2.0 * r, min=1e-20)
-    d = (1.0 + coeff) * denoised - coeff * old_denoised if use_second else denoised
+    if isinstance(use_second, torch.Tensor):
+        d = torch.where(use_second, (1.0 + coeff) * denoised - coeff * old_denoised, denoised)
+    else:
+        d = (1.0 + coeff) * denoised - coeff * old_denoised if use_second else denoised
     return (ratio * x + ema * d).to(sample.dtype)
 
 

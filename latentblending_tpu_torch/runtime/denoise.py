@@ -1,12 +1,20 @@
-"""The denoising loop over a batch of sibling branches, in PyTorch.
+"""The denoising loops over a batch of sibling branches, in PyTorch.
 
-Counterpart of latentblending_tpu/runtime/denoise.py's per-level path
-(`denoise_scan`), written as a Python loop over the executed window
-[idx_start, N) — PyTorch runs eagerly, so there is no compiled scan and no
-variant cache. Each step: the crossfeed slerp toward the step's mix target
-(kernel K1, ops/slerp.py), then the CFG-folded UNet (negative rows first),
-then the solver update (Euler, Euler-ancestral or DPM-Solver++ 2M).
+Counterpart of latentblending_tpu/runtime/denoise.py, written as Python
+loops — PyTorch runs eagerly, so there is no compiled scan and no variant
+cache:
 
+- `denoise_scan` (the per-level path): a loop over the executed window
+  [idx_start, N). Each step: the crossfeed slerp toward the step's mix
+  target (kernel K1, ops/slerp.py), then the CFG-folded UNet (negative
+  rows first), then the solver update (Euler, Euler-ancestral or
+  DPM-Solver++ 2M).
+- `denoise_scan_tree` (the fused single-level transition): one loop over
+  all N steps for the edges and every stem of a level, whose crossfeed
+  targets are live parental slerps of other rows of the same batch (K1
+  for both the parental mix and the crossfeed).
+
+The segmented multi-level scan (`denoise_scan_tree_seg`) is not ported.
 Latents keep the JAX package's layout, [B, h, w, 4]; the UNet callable
 takes and returns that layout too (the holder permutes to NCHW inside).
 """
@@ -152,6 +160,75 @@ def denoise_scan(
         latents, old_denoised = _eps_and_step(
             plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
             sig_w[j], sigp_w[j], sign_w[j], t_w[j], z, bool(use2_w[j]),
+        )
+        traj.append(latents)
+    return torch.stack(traj, dim=0)
+
+
+def denoise_scan_tree(
+    unet_apply: Callable,
+    plan: DenoisePlan,
+    latents_start: torch.Tensor,  # [B, h, w, 4] — edges then stems
+    cond: Conditioning,
+    parent_idx: torch.Tensor,  # [B, 2] int64 — in-batch parent rows (self for edges)
+    parent_fract: torch.Tensor,  # [B] f32 — parental mix fraction per row
+    mix_coeffs: torch.Tensor,  # [M, B] crossfeed slerp fraction per step & row
+    sigmas: np.ndarray,  # [N+1]
+    timesteps: np.ndarray,  # [N]
+    guidance_scale: torch.Tensor,  # [B]
+    noise: Optional[torch.Tensor] = None,  # [M, B, h, w, 4] ancestral draws (euler_ancestral)
+    win_steps: Optional[torch.Tensor] = None,  # [M, h, w, 4] recycled-edge entering-states
+    win_mask: Optional[torch.Tensor] = None,  # [B] bool — rows whose parent-1 is the window
+    pin_steps=None,  # [B] int — step each row is pinned at (0 = edge)
+) -> torch.Tensor:
+    """The fused single-level tree loop: one call computes the edge
+    trajectories and every stem of the level; returns [M, B, h, w, 4].
+
+    Each row's crossfeed target is the parental slerp of the CURRENT states
+    of two rows of the batch (a parent's state entering step i is its
+    trajectory entry i-1). A stem injected at step i0 carries junk before
+    i0 (it evolves from a finite placeholder) and is pinned at i0 by mix
+    coefficient 1.0: the slerp returns the parental mix exactly.
+
+    win_steps/win_mask: rows with win_mask take their parent-1 state from
+    the per-step window (a recycled edge 1) instead of a live row; this
+    also carries branch1 crossfeed for edge 2 (parent_fract 0).
+
+    pin_steps gates the dpmpp_2m 2nd-order term per row: it engages only
+    after the row's pin step, so pre-pin junk never enters the history.
+    """
+    M = plan.exec_steps
+    dev = latents_start.device
+    if plan.sched == "euler_ancestral" and noise is None:
+        raise ValueError("plan.sched='euler_ancestral' needs `noise` (the call's per-step draws)")
+    pe, pool, tids = _fold_cfg(plan, cond)
+    tables = _step_tables(plan, sigmas, timesteps)
+    sig_w, sigp_w, sign_w, t_w = (torch.as_tensor(a, device=dev) for a in tables[:4])
+    B = latents_start.shape[0]
+    pins = np.zeros((B,), np.int64) if pin_steps is None else np.asarray(pin_steps, np.int64)
+    # per-row validity of the solver history: only after the row's pin step
+    use2_mat = torch.as_tensor(tables[4][:, None] & (np.arange(M)[:, None] > pins[None, :]), device=dev)
+    mix_coeffs = mix_coeffs.to(device=dev, dtype=torch.float32)
+    parent_fract = parent_fract.to(device=dev, dtype=torch.float32).contiguous()
+    p1 = parent_idx[:, 0].to(device=dev, dtype=torch.long)
+    p2 = parent_idx[:, 1].to(device=dev, dtype=torch.long)
+    if win_steps is not None:
+        wmask = torch.as_tensor(win_mask, dtype=torch.bool, device=dev).reshape(-1, 1, 1, 1)
+
+    latents = latents_start
+    old_denoised = torch.zeros(latents.shape, dtype=torch.float32, device=dev)
+    traj = []
+    for j in range(M):
+        p1_state = latents.index_select(0, p1)
+        if win_steps is not None:
+            p1_state = torch.where(wmask, win_steps[j].to(latents.dtype).expand_as(latents), p1_state)
+        # live parental mix, then the crossfeed slerp — both kernel K1 on the GPU
+        m_t = slerp_rows(p1_state, latents.index_select(0, p2), parent_fract)
+        latents = slerp_rows(latents, m_t, mix_coeffs[j].contiguous())
+        latents, old_denoised = _eps_and_step(
+            plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
+            sig_w[j], sigp_w[j], sign_w[j], t_w[j], None if noise is None else noise[j],
+            use2_mat[j].reshape(-1, 1, 1, 1),
         )
         traj.append(latents)
     return torch.stack(traj, dim=0)

@@ -37,6 +37,7 @@ from latentblending_tpu_torch.runtime.denoise import (
     DenoisePlan,
     build_mix_inputs,
     denoise_scan,
+    denoise_scan_tree,
 )
 
 VAE_SCALE_FACTOR = 8
@@ -125,6 +126,9 @@ class SDXLHolder:
         # index); the engine restarts the stream at each transition
         self.noise_seed_base = 0
         self._noise_call = 0
+        # denoise signatures already run (see _note_warm)
+        self._warm_keys: set = set()
+        self.last_run_was_warm = False
         self.num_inference_steps = 4 if self.is_sdxl_turbo else 30
         self.schedule: SchedulerState = make_schedule(self.spec.scheduler, self.num_inference_steps)
         self.set_dimensions(self.spec.default_size)
@@ -253,7 +257,68 @@ class SDXLHolder:
         """[-1,1] → uint8, still on the device."""
         return (torch.clamp(imgs_pm1 / 2 + 0.5, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
+    @staticmethod
+    def to_i420_device(imgs_pm1: torch.Tensor) -> torch.Tensor:
+        """[-1,1] [B,H,W,3] → packed I420 uint8 [B, H*3/2, W], on the device.
+
+        JFIF full-range BT.601 (ITU-T T.871 §7) with 2×2 mean-pooled chroma,
+        the layout of video/i420.py (Y rows, then Cb and Cr at two chroma
+        rows per buffer row): 1.5 bytes per pixel leave the device instead
+        of 3. Needs H % 4 == 0 and even W."""
+        B, H, W = imgs_pm1.shape[:3]
+        if H % 4 or W % 2:
+            raise ValueError(f"I420 needs H % 4 == 0 and even W, got {(H, W)}")
+        rgb = torch.clamp(imgs_pm1.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = 128.0 - 0.168735892 * r - 0.331264108 * g + 0.5 * b
+        cr = 128.0 + 0.5 * r - 0.418687589 * g - 0.081312411 * b
+
+        def pool(c):
+            return c.reshape(B, H // 2, 2, W // 2, 2).mean(dim=(2, 4))
+
+        def u8(x):
+            return torch.clamp(x + 0.5, 0.0, 255.0).to(torch.uint8)
+
+        return torch.cat([u8(y), u8(pool(cb)).reshape(B, H // 4, W), u8(pool(cr)).reshape(B, H // 4, W)], dim=1)
+
+    @staticmethod
+    def pm1_to_uint8(imgs_pm1: torch.Tensor) -> np.ndarray:
+        """[-1,1] device images → host uint8 [B,H,W,3] (one transfer)."""
+        return SDXLHolder.to_uint8_device(imgs_pm1).cpu().numpy()
+
+    def latents2images_batched(self, latents: torch.Tensor) -> list[np.ndarray]:
+        """[B,h,w,4] → list of uint8 images via chunked batched decodes."""
+        arr = self.pm1_to_uint8(self.decode_to_pm1_batched(latents))
+        return [arr[i] for i in range(arr.shape[0])]
+
+    def latent2image(self, latents: torch.Tensor, output_type: str = "np"):
+        """Final latent [h,w,4] or [1,h,w,4] → uint8 image [H,W,3] (rounded
+        to nearest, as the JAX package); output_type "pil" gives a PIL image
+        (PIL is imported on that branch only)."""
+        if latents.ndim == 3:
+            latents = latents[None]
+        img = self.decode_to_pm1_batched(latents[:1])
+        img = (torch.clamp(img / 2 + 0.5, 0.0, 1.0) * 255.0).round().to(torch.uint8)[0].cpu().numpy()
+        if output_type == "pil":
+            from PIL import Image
+
+            return Image.fromarray(img)
+        return img
+
     # -------------------------------------------------------- denoise paths
+
+    def _note_warm(self, key: tuple) -> None:
+        """Set last_run_was_warm for a denoise call of signature `key`.
+
+        Rule: a call is cold (False) the first time this holder runs its
+        signature (path, batch and latent shape, window start, CFG, solver),
+        on any device, and warm after. On the GPU the cold call pays the
+        kernel library build (first call), cuBLAS/cuDNN algorithm selection
+        for the new shapes and allocator growth, so only warm calls are
+        timing samples for the engine's cost model."""
+        self.last_run_was_warm = key in self._warm_keys
+        self._warm_keys.add(key)
 
     def _unet_apply(self, lat, t, pe, pool, tids):
         eps = self.unet(lat.permute(0, 3, 1, 2), t, pe, pool, tids)
@@ -300,9 +365,56 @@ class SDXLHolder:
         if plan.sched == "euler_ancestral":
             noise = self.ancestral_noise(plan.exec_steps, tuple(latents_start.shape))
         self._noise_call += 1
+        self._note_warm(("level", plan, tuple(latents_start.shape)))
         return denoise_scan(
             self._unet_apply, plan, latents_start, cond, mw.to(self.dtype), mc,
             self.schedule.sigmas, self.schedule.timesteps, guidance_scale, noise=noise,
+        )
+
+    @torch.no_grad()
+    def run_tree_batched(
+        self,
+        cond: Conditioning,
+        latents_start: torch.Tensor,  # [B,h,w,4] — edges then stems
+        parent_idx,  # [B,2] int — in-batch parent rows (self for edges)
+        parent_fract,  # [B] float — parental slerp fraction per row
+        coeffs,  # [N,B] float — crossfeed coefficient per (step,row)
+        guidance_scale=None,  # [B] or None
+        win_steps=None,  # [N,h,w,4] recycled-edge entering-states, or None
+        win_mask=None,  # [B] bool — rows whose parent-1 is the window
+        pin_steps=None,  # [B] int — injection step per row (0 = edge)
+    ) -> torch.Tensor:
+        """ONE fused loop over [0,N) computing the edge trajectories and all
+        stems of a single-level plan (denoise_scan_tree); returns traj
+        [N,B,h,w,4]. The euler_ancestral draws of the whole call come from
+        one ancestral_noise(N, (B,h,w,4)) call."""
+        B = latents_start.shape[0]
+        N = self.num_inference_steps
+        use_cfg = self.do_classifier_free_guidance
+        if guidance_scale is None:
+            guidance_scale = torch.full((B,), self.guidance_scale, dtype=torch.float32)
+        guidance_scale = torch.as_tensor(guidance_scale, dtype=torch.float32, device=self.device)
+        latents_start = latents_start.to(self.dtype).contiguous()
+        plan = DenoisePlan(
+            num_steps=N, idx_start=0, batch=B, use_cfg=use_cfg,
+            guidance_rescale=float(self.guidance_rescale) if use_cfg else 0.0,
+            sched=self.schedule.config.scheduler_type,
+        )
+        noise = None
+        if plan.sched == "euler_ancestral":
+            noise = self.ancestral_noise(N, tuple(latents_start.shape))
+        self._noise_call += 1
+        self._note_warm(("tree", win_steps is not None, plan, tuple(latents_start.shape)))
+        cw = np.asarray(coeffs, np.float32).copy()
+        cw[0, :] = 0.0  # step 0 has no predecessor state to mix toward
+        return denoise_scan_tree(
+            self._unet_apply, plan, latents_start, cond,
+            torch.as_tensor(np.asarray(parent_idx), dtype=torch.long, device=self.device),
+            torch.as_tensor(np.asarray(parent_fract, np.float32), device=self.device),
+            torch.from_numpy(cw).to(self.device), self.schedule.sigmas, self.schedule.timesteps,
+            guidance_scale, noise=noise,
+            win_steps=None if win_steps is None else win_steps.to(self.dtype),
+            win_mask=win_mask, pin_steps=pin_steps,
         )
 
     def run_diffusion(self, text_embeddings, latents_start: torch.Tensor, idx_start: int = 0,

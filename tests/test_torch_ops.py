@@ -186,9 +186,10 @@ def test_flash_dispatch_rules(monkeypatch):
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu():
     """Each CUDA kernel against its plain version on the card, at the main
-    path's shapes, SDXL-base 1024²'s, and one peaked case each (q scaled by
-    4), with the bounds of chip_smoke.py: K1 bf16 2e-2 / f32 1e-5, K2 2e-2
-    abs vs f32, K3 1e-4 relative."""
+    path's shapes (per-level and fused), SDXL-base 1024²'s, and one peaked
+    case each (q scaled by 4), with the bounds of chip_smoke.py: K1 bf16
+    2e-2 / f32 1e-5 (and exact at fractions 0 and 1), K2 2e-2 abs vs f32,
+    K3 1e-4 relative."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -200,8 +201,16 @@ def test_kernels_match_plain_versions_on_gpu():
         assert tslerp.launches == n + 1
         want = tslerp.slerp_rows_reference(a, b, f).float()
         assert bool(((got - want).abs() <= bound + bound * want.abs()).all())
-    k2_cases = [((10, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((2, 4096, 10, 64), 1.0),
-                ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
+    # the fused scan's rows: fraction exactly 0 (row 0 slerped with itself)
+    # returns a, exactly 1 (the pin) returns b, bit for bit
+    a, b = (torch.randn((12, 64, 64, 4), generator=g, device="cuda").bfloat16() for _ in range(2))
+    b[0] = a[0]
+    f = torch.rand((12,), generator=g, device="cuda")
+    f[0:2], f[2:4] = 0.0, 1.0
+    got = tslerp.slerp_rows(a, b, f)
+    assert torch.equal(got[0:2], a[0:2]) and torch.equal(got[2:4], b[2:4])
+    k2_cases = [((10, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((12, 1024, 10, 64), 1.0),
+                ((2, 4096, 10, 64), 1.0), ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
     for shape, peak in k2_cases:
         q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
         q, k, v = (q * peak).bfloat16(), k.bfloat16(), v.bfloat16()

@@ -9,15 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from latentblending_tpu.models import configs as JC
-from latentblending_tpu.models.unet import UNet2DCondition as JUNet
 from latentblending_tpu.ops.scheduler import SDXL_TURBO_SCHEDULER, make_schedule
 from latentblending_tpu.runtime import denoise as jd
 from latentblending_tpu.runtime.holder import SDXLHolder as JHolder
-from latentblending_tpu_torch.models import configs as TC
-from latentblending_tpu_torch.models.unet import UNet2DCondition as TUNet
 from latentblending_tpu_torch.runtime import denoise as td
-from tests.torch_port_util import port_holder_from_jax, port_module
+from tests.torch_port_util import port_holder_from_jax, tiny_unet_pair
 
 POOLED = 48
 N = 3
@@ -25,17 +21,7 @@ N = 3
 
 @pytest.fixture(scope="module")
 def unets():
-    ju = JUNet(JC.TINY_UNET)
-    params = jax.jit(ju.init)(
-        jax.random.PRNGKey(3), jnp.zeros((1, 8, 8, 4)), jnp.float32(0.0), jnp.zeros((1, 77, 64)),
-        jnp.zeros((1, POOLED)), jnp.zeros((1, 6)),
-    )["params"]
-    tu = port_module(TUNet(TC.TINY_UNET, pooled_dim=POOLED), params)
-
-    def t_apply(lat, t, pe, pool, tids):
-        return tu(lat.permute(0, 3, 1, 2), t, pe, pool, tids).permute(0, 2, 3, 1).contiguous()
-
-    return (lambda p, lat, t, pe, pool, tids: ju.apply({"params": p}, lat, t, pe, pool, tids)), params, t_apply
+    return tiny_unet_pair(POOLED)
 
 
 @pytest.mark.parametrize("sched,use_cfg,crossfeed,idx_start,rescale", [

@@ -1,6 +1,8 @@
-"""The slice as a whole: BlendingEngine.run_transition(fixed_seeds=[420,421])
-in the JAX package (per-level path, LB_FUSED=0) and in the port, with the
-same parameters, the JAX seeded noise injected into the port, and for the
+"""The per-level path as a whole: BlendingEngine.run_transition(
+fixed_seeds=[420,421]) with LB_FUSED=0 — which sends both packages past
+their default, the fused single-call transition (tests/test_torch_fused.py
+holds that one) — in the JAX package and in the port, with the same
+parameters, the JAX seeded noise injected into the port, and for the
 ancestral solver the JAX per-step draws injected too.
 
 Bounds: tree_fracts and tree_idx_injection exactly equal (a single-round
@@ -14,7 +16,7 @@ import torch
 from latentblending_tpu.engine.blending import BlendingEngine as JEngine
 from latentblending_tpu.runtime.holder import SDXLHolder as JHolder
 from latentblending_tpu_torch.engine.blending import BlendingEngine as TEngine
-from tests.torch_port_util import jax_ancestral_draws, port_holder_from_jax, to_torch
+from tests.torch_port_util import inject_jax_noise, port_holder_from_jax
 
 PROMPTS = ("photo of a forest at dawn", "photo of a city at night", "blurry, low quality")
 
@@ -37,12 +39,12 @@ def test_run_transition_matches_jax(spec, monkeypatch):
     jimgs = jbe.run_transition(fixed_seeds=[420, 421])
 
     tdh = port_holder_from_jax(jdh, spec)
-    tdh.get_noise = lambda seed: to_torch(jdh.get_noise(seed))
-    tdh.ancestral_noise = lambda steps, shape: torch.from_numpy(
-        jax_ancestral_draws(tdh.noise_seed_base, tdh._noise_call, steps, shape))
+    inject_jax_noise(tdh, jdh)
     tbe = _setup(TEngine(tdh))
     timgs = tbe.run_transition(fixed_seeds=[420, 421])
 
+    for be in (jbe, tbe):
+        assert not be.last_report.levels[0].get("fused")
     assert tbe.list_idx_injection == list(jbe.list_idx_injection)
     assert tbe.tree_fracts == jbe.tree_fracts
     assert tbe.tree_idx_injection == jbe.tree_idx_injection
@@ -59,6 +61,7 @@ def test_swap_forward_and_recycle(monkeypatch):
     trajectory is reused unchanged (port only; JAX semantics)."""
     from latentblending_tpu_torch.runtime.holder import SDXLHolder
 
+    monkeypatch.setenv("LB_FUSED", "0")
     be = _setup(TEngine(SDXLHolder.from_random("tiny-turbo", seed=1, dtype=torch.float32)))
     be.set_branching(nmb_max_branches=4)
     be.run_transition(fixed_seeds=[5, 6])

@@ -10,6 +10,12 @@ import torch
 from latentblending_tpu_torch.models.weights import params_from_jax
 from latentblending_tpu_torch.runtime import holder as th
 
+# The suite runs in several worker processes at once. torch's default
+# intra-op pool (one thread per core in every worker) then oversubscribes
+# the cores, and the tiny-shape CPU tests slow down by up to 100x; one
+# thread per worker keeps them near their single-process time.
+torch.set_num_threads(1)
+
 
 def np_tree(tree):
     """Flax param tree → the same tree with numpy float32 leaves."""
@@ -38,3 +44,35 @@ def jax_ancestral_draws(seed_base: int, call: int, exec_steps: int, shape) -> np
     `call`-th denoise call (latentblending_tpu/runtime/holder.py)."""
     keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(int(seed_base)), call), exec_steps)
     return np.stack([np.asarray(jax.random.normal(k, tuple(shape), jax.numpy.float32)) for k in keys])
+
+
+def inject_jax_noise(tdh, jdh) -> None:
+    """Make the port holder `tdh` draw the JAX holder's seeded noise and
+    per-call euler_ancestral draws (torch RNG cannot reproduce jax.random)."""
+    tdh.get_noise = lambda seed: to_torch(jdh.get_noise(seed))
+    tdh.ancestral_noise = lambda steps, shape: torch.from_numpy(
+        jax_ancestral_draws(tdh.noise_seed_base, tdh._noise_call, steps, shape))
+
+
+def tiny_unet_pair(pooled: int = 48, seed: int = 3):
+    """The tiny UNet in both packages with the same JAX-initialised
+    parameters: (jax apply(params, lat, t, pe, pool, tids), params,
+    port apply(lat, t, pe, pool, tids)), latents in [B,h,w,4] on both."""
+    import jax.numpy as jnp
+
+    from latentblending_tpu.models import configs as JC
+    from latentblending_tpu.models.unet import UNet2DCondition as JUNet
+    from latentblending_tpu_torch.models import configs as TC
+    from latentblending_tpu_torch.models.unet import UNet2DCondition as TUNet
+
+    ju = JUNet(JC.TINY_UNET)
+    params = jax.jit(ju.init)(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8, 8, 4)), jnp.float32(0.0), jnp.zeros((1, 77, 64)),
+        jnp.zeros((1, pooled)), jnp.zeros((1, 6)),
+    )["params"]
+    tu = port_module(TUNet(TC.TINY_UNET, pooled_dim=pooled), params)
+
+    def t_apply(lat, t, pe, pool, tids):
+        return tu(lat.permute(0, 3, 1, 2), t, pe, pool, tids).permute(0, 2, 3, 1).contiguous()
+
+    return (lambda p, lat, t, pe, pool, tids: ju.apply({"params": p}, lat, t, pe, pool, tids)), params, t_apply
