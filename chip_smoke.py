@@ -8,14 +8,22 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
 
 1. prints the card (nvidia-smi name and power limit) and the TF32 switches;
 2. builds the hand-written CUDA kernels from latentblending_tpu_torch/csrc
-   and prints the build time;
-3. runs each kernel at the shapes of the SDXL-Turbo 512² main path — both
-   the per-level and the fused transition (K1 [12,64,64,4] with exact 0/1
-   fractions and a row slerped with itself, K2 [12,1024,10,64]) — and, for
-   K2/K3, of SDXL-base 1024², plus a peaked case with q scaled by 4,
-   against its plain PyTorch version on the same inputs, printing the max
-   abs/rel error and both times (CUDA events, median of 20 runs after
-   warm-up); prints the tensor-core instruction counts of the built SASS;
+   and prints the build time, ptxas's registers/spills per kernel and the
+   tensor-core instruction counts of the built SASS;
+3. runs each kernel at the shapes of the SDXL-Turbo 512² main path — the
+   per-level and the fused transition — and of SDXL-base 1024², against
+   its plain PyTorch version on the same inputs: K1 slerp_rows at
+   [2|10|12|40,64,64,4], [2,128,128,4] (bf16 and f32), ragged rows and a
+   misaligned row (the scalar path), exact 0/1 fractions; K1
+   slerp_tree_step at [12,64,64,4] with and without a window row, pins
+   and a self-parent row, and on 1024² and ragged rows; the K1 wrappers'
+   refusals; K2/K3 at every path shape plus a peaked case (q scaled by 4).
+   For each case it prints the max abs/rel error, the kernel's device time
+   (CUDA-graph replay of 10 launches, median of 10), the time of one call
+   (CUDA events, median of 20), the plain version's and, for K2/K3,
+   scaled_dot_product_attention's device time (the port never calls it),
+   the bound (bytes over 3.35 TB/s or operations over the peak of the unit
+   that runs them) and the share of it reached;
 4. checks the slice on a small input: the tiny-turbo transition on the GPU
    agrees with the same transition on the CPU, on the default (fused) path
    and with LB_FUSED=0 (per-level), and on the GPU the fused transition
@@ -25,12 +33,15 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    set_negative_prompt, then
    - run_transition(fixed_seeds=[420, 421]) on the default path, which must
      be the fused one: 12 uint8 512×512 keyframes, 11 finite similarities,
-     each kernel launched during that call; first and warm wall, peak memory;
-   - the same with LB_FUSED=0 (the per-level path);
+     slerp_tree_step launched once per step (4), slerp_rows never, K2 and
+     K3 launched; first and warm wall, peak memory;
+   - the same with LB_FUSED=0 (the per-level path: slerp_rows, K2, K3);
    - run_transition_streaming(keyframe_format="i420"): each resolved handle
      within 1 of the host I420 conversion of the fused RGB keyframe;
    - measure_sync_overhead(), then predict_transition_time() beside the
      measured warm walls of both paths;
+   - one warm run of each path under torch.profiler: device time, busy
+     share, kernel counts and the costliest kernels;
 6. prints one JSON line with every kernel's numbers, then the final line
    {"ok": true, "device": {...}}.
 
@@ -86,7 +97,16 @@ def _print_sass_counts(lib) -> None:
               f"HMMA {sum('HMMA' in o for o in ops)}", flush=True)
 
 
+# published H100 SXM peaks (NVIDIA's data sheet, dense): device memory rate,
+# bf16 tensor-core, TF32 tensor-core and f32 (CUDA core) operations
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+GRAPH_LAUNCHES = 10  # launches per captured graph when timing device time
+_SIDE: dict = {}  # the one side stream of the timing warm-ups
+
+
 def _median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """One call, CUDA events around it: includes the host's launch time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -101,40 +121,216 @@ def _median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _slerp_case(torch, g, shape, dtype, pins: bool = False) -> dict:
-    """slerp_rows vs slerp_rows_reference within K1_BOUND. pins=True is the
-    fused scan's case: rows 0-1 at fraction exactly 0 (row 0 slerped with
-    itself, as edge 1's parental mix), rows 2-3 at exactly 1 (the pin);
-    the kernel must return a there, resp. b, bit for bit."""
+def _device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time of one call: GRAPH_LAUNCHES calls captured in a CUDA
+    graph, the graph replayed `reps` times (CUDA events), median / count.
+    The replay leaves out the host's launch time."""
+    side = _SIDE.setdefault("stream", torch.cuda.Stream())
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / GRAPH_LAUNCHES)
+    del graph
+    return statistics.median(times)
+
+
+def _bound(nbytes: float, flops: float, peak: str) -> dict:
+    """Least time the card could take: the larger of bytes over the memory
+    rate and flops over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bound_peak": peak}
+
+
+def _timings(torch, case: dict, kernel, plain, library=None) -> dict:
+    """Device and call times of the kernel, the plain version and (where
+    given) the library call; the share of the bound the kernel reaches."""
+    case["ms"] = _device_ms(torch, kernel)
+    case["call_ms"] = _median_ms(torch, kernel)
+    case["plain_ms"] = _device_ms(torch, plain)
+    case["library_ms"] = None if library is None else _device_ms(torch, library)
+    case["bound_us"] = case["bound_ms"] * 1e3
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    return case
+
+
+def _k1_close(torch, got, want, dtype) -> tuple:
+    """(within K1_BOUND and finite, max abs error, max rel error, bound)."""
+    bound = K1_BOUND[str(dtype).split(".")[1]]
+    err = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= bound + bound * want.float().abs()).all())
+    return ok, err.max().item(), (err / want.float().abs().clamp_min(1e-6)).max().item(), bound
+
+
+def _slerp_case(torch, g, shape, dtype, pins: bool = False, misaligned: bool = False) -> dict:
+    """slerp_rows vs slerp_rows_reference within K1_BOUND. Every case has
+    row 0 at fraction exactly 0 and row 1 at exactly 1 (a, resp. b, bit for
+    bit). pins=True is the fused scan's case: rows 0-1 at 0 (row 0 slerped
+    with itself, as edge 1's parental mix), rows 2-3 at exactly 1 (the pin).
+    misaligned=True starts a one element past a 16-byte boundary (the
+    kernel's scalar path)."""
     from latentblending_tpu_torch.ops import slerp
 
     a = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    if misaligned:
+        a = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(shape)
     b = torch.randn(shape, generator=g, device="cuda").to(dtype)
     f = torch.rand((shape[0],), generator=g, device="cuda")
+    f[0], f[1] = 0.0, 1.0
+    exact = [(0, a), (1, b)]
     if pins:
         b[0] = a[0]
         f[0:2] = 0.0
         f[2:4] = 1.0
+        exact = [(0, a), (1, a), (2, b), (3, b)]
     got = slerp.slerp_rows(a, b, f)
-    want = slerp.slerp_rows_reference(a, b, f).float()
+    want = slerp.slerp_rows_reference(a, b, f)
     torch.cuda.synchronize()
-    err = (got.float() - want).abs()
-    bound = K1_BOUND[str(dtype).split(".")[1]]
-    ok = bool(torch.isfinite(got).all()) and bool((err <= bound + bound * want.abs()).all())
-    if pins:
-        ok = ok and bool(torch.equal(got[0:2], a[0:2]) and torch.equal(got[2:4], b[2:4]))
-    case = {
-        "shape": list(shape), "dtype": str(dtype).split(".")[1], "pins": pins,
-        "max_abs_err": err.max().item(),
-        "max_rel_err": (err / want.abs().clamp_min(1e-6)).max().item(),
-        "ms": _median_ms(torch, lambda: slerp.slerp_rows(a, b, f)),
-        "plain_ms": _median_ms(torch, lambda: slerp.slerp_rows_reference(a, b, f)),
-        "bound": bound, "ok": ok,
-    }
+    ok, abs_err, rel_err, bound = _k1_close(torch, got, want, dtype)
+    ok = ok and all(torch.equal(got[r], src[r]) for r, src in exact)
+    ok = ok and torch.equal(got, slerp.slerp_rows(a, b, f))  # repeats bit for bit
+    rows, n, size = shape[0], a.numel() // shape[0], a.element_size()
+    case = {"entry": "slerp_rows", "shape": list(shape), "dtype": str(dtype).split(".")[1], "pins": pins,
+            "misaligned": misaligned, "max_abs_err": abs_err, "max_rel_err": rel_err, "bound": bound, "ok": ok,
+            **_bound(3 * rows * n * size + 4 * rows, 9 * rows * n, "f32")}
+    _timings(torch, case, lambda: slerp.slerp_rows(a, b, f), lambda: slerp.slerp_rows_reference(a, b, f))
     print("K1 slerp_rows", json.dumps(case), flush=True)
     if not ok:
-        raise AssertionError(f"K1 outside its bound: {case}")
+        raise AssertionError(f"K1 slerp_rows outside its bound: {case}")
     return case
+
+
+def _tree_case(torch, g, shape, dtype, window: bool = True, one_chunk: bool = True) -> dict:
+    """slerp_tree_step vs slerp_tree_step_reference within K1_BOUND, as the
+    fused scan calls it: row 0 an edge (self parents, parental fraction 0,
+    mix 0: itself bit for bit), row 1 the recycled edge (fraction 0, mix 1:
+    the window, or without one itself, bit for bit), rows 2-3 pinned (mix
+    1; row 3 at parental fraction 1: its parent 2 bit for bit), row 4 a
+    self-parent stem, the rest random parents. Where a CTA's slice is one
+    register chunk (one_chunk), the result is also held within 1 ulp of the
+    two-call composition; on longer slices the tree step's second round
+    sums the chunks in another order, and the ulps are only printed."""
+    from latentblending_tpu_torch.ops import slerp
+
+    rows = shape[0]
+    lat = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    win = torch.randn(shape[1:], generator=g, device="cuda").to(dtype) if window else None
+    p1 = torch.randint(0, rows, (rows,), generator=g, device="cuda")
+    p2 = torch.randint(0, rows, (rows,), generator=g, device="cuda")
+    p1[0:2], p2[0:2] = torch.arange(2, device="cuda"), torch.arange(2, device="cuda")
+    p1[4], p2[4] = 4, 4
+    pf = torch.rand((rows,), generator=g, device="cuda")
+    mc = torch.rand((rows,), generator=g, device="cuda")
+    pf[0:2], pf[3] = 0.0, 1.0
+    mc[0], mc[1:4] = 0.0, 1.0
+    mask = None
+    if window:
+        mask = torch.zeros((rows,), dtype=torch.bool, device="cuda")
+        mask[1] = True
+    args = (lat, p1, p2, pf, mc, win, mask)
+    got = slerp.slerp_tree_step(*args)
+    want = slerp.slerp_tree_step_reference(*args)
+    torch.cuda.synchronize()
+    ok, abs_err, rel_err, bound = _k1_close(torch, got, want, dtype)
+    ok = ok and torch.equal(got[0], lat[0]) and torch.equal(got[1], win if window else lat[1])
+    ok = ok and torch.equal(got[3], lat[int(p2[3])]) and torch.equal(got, slerp.slerp_tree_step(*args))
+    # the two-call composition it replaces (gathers, the window select, two
+    # slerp_rows launches): within 1 ulp of the storage type
+    def two_calls():
+        p1_state = lat.index_select(0, p1)
+        if window:
+            p1_state = torch.where(mask[:, None, None, None], win.expand_as(lat), p1_state)
+        return slerp.slerp_rows(lat, slerp.slerp_rows(p1_state, lat.index_select(0, p2), pf), mc)
+
+    ref2 = two_calls().float()
+    mant_bits = 7 if dtype == torch.bfloat16 else 23
+    ulp = torch.ldexp(torch.ones_like(ref2), torch.frexp(ref2)[1] - 1 - mant_bits)
+    ulps = ((got.float() - ref2).abs() / ulp).max()
+    ok = ok and (ulps.item() <= 1 or not one_chunk)
+    n, size = lat.numel() // rows, lat.element_size()
+    # latents read once, the window once, out written once; indices, fractions, mask
+    nbytes = (2 * rows * n + (n if window else 0)) * size + rows * (8 + 8 + 4 + 4 + (1 if window else 0))
+    case = {"entry": "slerp_tree_step", "shape": list(shape), "dtype": str(dtype).split(".")[1],
+            "window_rows": 1 if window else 0, "max_abs_err": abs_err, "max_rel_err": rel_err, "bound": bound,
+            "max_ulps_vs_two_calls": ulps.item(), "bit_equal_to_two_calls": torch.equal(got.float(), ref2),
+            "ok": ok, **_bound(nbytes, 18 * rows * n, "f32")}
+    _timings(torch, case, lambda: slerp.slerp_tree_step(*args), lambda: slerp.slerp_tree_step_reference(*args))
+    case["two_calls_ms"] = _device_ms(torch, two_calls)
+    print("K1 slerp_tree_step", json.dumps(case), flush=True)
+    if not ok:
+        raise AssertionError(f"K1 slerp_tree_step outside its bound: {case}")
+    return case
+
+
+def _wrapper_refusals(torch, g) -> None:
+    """The K1 wrappers raise on what the kernel does not take: a dtype
+    without a kernel, mismatched shapes, a parent row out of range, int32
+    indices, a window of another shape, a mask that is not bool, indices
+    on another device."""
+    from latentblending_tpu_torch.ops import slerp
+
+    lat = torch.randn((6, 5, 7, 3), generator=g, device="cuda")
+    idx = torch.arange(6, device="cuda")
+    fr = torch.rand((6,), generator=g, device="cuda")
+    mask = torch.zeros((6,), dtype=torch.bool, device="cuda")
+    calls = [
+        (TypeError, lambda: slerp.slerp_rows(lat.half(), lat.half(), fr)),
+        (ValueError, lambda: slerp.slerp_rows(lat, lat[:, :1], fr)),
+        (ValueError, lambda: slerp.slerp_tree_step(lat, idx + 6, idx, fr, fr)),
+        (ValueError, lambda: slerp.slerp_tree_step(lat, idx.int(), idx, fr, fr)),
+        (ValueError, lambda: slerp.slerp_tree_step(lat, idx, idx, fr, fr, lat[0, :1], mask)),
+        (ValueError, lambda: slerp.slerp_tree_step(lat, idx, idx, fr, fr, lat[0], mask.float())),
+        (ValueError, lambda: slerp.slerp_tree_step(lat, idx.cpu(), idx, fr, fr)),
+    ]
+    for i, (error, call) in enumerate(calls):
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"K1 wrapper refusal {i}: expected {error.__name__}")
+    print(f"K1 wrappers: {len(calls)} refusals raised", flush=True)
+
+
+def _sdpa(torch, q, k, v):
+    """torch's scaled_dot_product_attention on [B,L,H,d] inputs with the
+    first backend that takes them (flash, efficient, cuDNN, math, in that
+    order): (callable, backend name). A yardstick only: the port never
+    calls it."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise RuntimeError("scaled_dot_product_attention: no backend takes these inputs")
 
 
 def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
@@ -149,20 +345,32 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
     want = attention.attention_reference(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    B, L, H, d = shape
+    flops = 4 * B * H * L * L * d
+    nbytes = 4 * B * L * H * d * q.element_size()
     case = {
         "shape": list(shape), "dtype": str(dtype).split(".")[1], "q_scale": peak,
         "max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
         "finite": bool(torch.isfinite(got).all()),
-        "ms": _median_ms(torch, lambda: attention.flash_attention(q, k, v)),
-        "plain_ms": _median_ms(torch, lambda: attention.attention_reference(q, k, v)),
     }
     del got, want
     if dtype == torch.bfloat16:
+        case.update(_bound(nbytes, flops, "bf16"))
         case["bound"] = K2_ABS_BOUND
         case["ok"] = case["finite"] and case["max_abs_err"] <= K2_ABS_BOUND
     else:
+        # K3 runs 3xTF32 on the tensor cores: three TF32 products for each
+        # f32 one, so its bound is 3 x flops over the TF32 peak; the bounds
+        # of the f32 CUDA cores and of one TF32 pass are printed beside it
+        case.update(_bound(nbytes, 3 * flops, "tf32"))
+        case["flops"], case["bound_peak"] = flops, "3xtf32"
+        case["bound_f32_cuda_core_us"] = _bound(nbytes, flops, "f32")["bound_ms"] * 1e3
+        case["bound_tf32_one_pass_us"] = _bound(nbytes, flops, "tf32")["bound_ms"] * 1e3
         case["bound"] = K3_REL_BOUND
         case["ok"] = case["finite"] and case["max_rel_err"] <= K3_REL_BOUND
+    library, case["library_backend"] = _sdpa(torch, q, k, v)
+    _timings(torch, case, lambda: attention.flash_attention(q, k, v),
+             lambda: attention.attention_reference(q, k, v), library)
     name = "K2 attention d64" if dtype == torch.bfloat16 else "K3 attention d512"
     print(name, json.dumps(case), flush=True)
     if not case["ok"]:
@@ -174,12 +382,30 @@ def kernel_phases(torch) -> dict:
     """Each kernel vs its plain version at the main path's shapes. The first
     case of each kernel is the one the kernels line reports."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    # K1: per-level crossfeed [10,...] (bf16 and f32), per-level parental
-    # mix [40,...], fused scan [12,...] (parental mix + crossfeed, with pins)
-    res = {"K1": [_slerp_case(torch, g, (10, 64, 64, 4), torch.bfloat16),
-                  _slerp_case(torch, g, (10, 64, 64, 4), torch.float32),
-                  _slerp_case(torch, g, (40, 64, 64, 4), torch.bfloat16),
-                  _slerp_case(torch, g, (12, 64, 64, 4), torch.bfloat16, pins=True)]}
+    # K1 slerp_rows: per-level crossfeed [10,...] (bf16 and f32) and edges
+    # [2,...], per-level parental mix [40,...], the pinned case [12,...],
+    # SDXL-base 1024² rows (in f32 two register chunks per CTA), ragged and
+    # misaligned rows (scalar path); slerp_tree_step: the fused scan's step
+    # [12,...] with and without the window, on 1024² and on ragged rows
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {"K1_rows": [_slerp_case(torch, g, (10, 64, 64, 4), bf16),
+                       _slerp_case(torch, g, (10, 64, 64, 4), f32),
+                       _slerp_case(torch, g, (2, 64, 64, 4), bf16),
+                       _slerp_case(torch, g, (40, 64, 64, 4), bf16),
+                       _slerp_case(torch, g, (12, 64, 64, 4), bf16, pins=True),
+                       _slerp_case(torch, g, (2, 128, 128, 4), bf16),
+                       _slerp_case(torch, g, (2, 128, 128, 4), f32),
+                       _slerp_case(torch, g, (4, 16, 16, 4), f32),
+                       _slerp_case(torch, g, (3, 5, 7, 3), f32),
+                       _slerp_case(torch, g, (3, 5, 7, 3), bf16),
+                       _slerp_case(torch, g, (2, 1024), f32, misaligned=True)],
+           "K1_tree": [_tree_case(torch, g, (12, 64, 64, 4), bf16),
+                       _tree_case(torch, g, (12, 64, 64, 4), bf16, window=False),
+                       _tree_case(torch, g, (12, 64, 64, 4), f32),
+                       _tree_case(torch, g, (12, 64, 64, 4), f32, window=False),
+                       _tree_case(torch, g, (6, 128, 128, 4), f32, one_chunk=False),
+                       _tree_case(torch, g, (6, 5, 7, 3), f32)]}
+    _wrapper_refusals(torch, g)
     # K2 / K3 at every shape of the path (SDXL-Turbo 512²: UNet batches 2,
     # 10 and, fused, 12; VAE decode chunks 2-4) and of SDXL-base 1024²,
     # plus one peaked case each (q scaled by 4: the running max is rescaled
@@ -190,6 +416,16 @@ def kernel_phases(torch) -> dict:
                 ((2, 4096, 1, 512), 4.0)]
     res["K2"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k2_cases]
     res["K3"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k3_cases]
+    # cuBLAS keeps a workspace for each stream it ran on (the timing's side
+    # and capture streams): release them, so the main path's peak memory
+    # counts the main path's own allocations only
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    print(f"cuBLAS workspaces released: {clear is not None}; allocated after the kernel phases: "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
     return res
 
 
@@ -273,6 +509,7 @@ def _zero_counts() -> None:
     from latentblending_tpu_torch.ops import attention, slerp
 
     slerp.launches = 0
+    slerp.launches_tree_step = 0
     attention.launches_self = 0
     attention.launches_vae = 0
 
@@ -280,12 +517,15 @@ def _zero_counts() -> None:
 def _read_counts() -> dict:
     from latentblending_tpu_torch.ops import attention, slerp
 
-    return {"K1": slerp.launches, "K2": attention.launches_self, "K3": attention.launches_vae}
+    return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
+            "K3": attention.launches_vae}
 
 
 def _check_transition(be, imgs, counts: dict, fused: bool, label: str) -> None:
     """12 uint8 keyframes of the holder's size, 11 finite similarities,
-    the expected path, and each kernel launched."""
+    the expected path, and its kernels launched: the fused path K1's tree
+    step once per denoise step and slerp_rows never, the per-level path
+    slerp_rows and never the tree step; both K2 and K3."""
     hw = (be.dh.height_img, be.dh.width_img, 3)
     if bool(be.last_report.levels[0].get("fused")) != fused:
         raise AssertionError(f"{label}: expected fused={fused}, report levels {be.last_report.levels}")
@@ -297,8 +537,12 @@ def _check_transition(be, imgs, counts: dict, fused: bool, label: str) -> None:
     sims = list(be.tree_similarities)
     if len(sims) != 11 or not all(s == s and abs(s) != float("inf") for s in sims):
         raise AssertionError(f"{label}: similarities not 11 finite values: {sims}")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"{label}: a kernel of the path was not launched: {counts}")
+    steps = be.dh.num_inference_steps
+    want_tree = (lambda c: c == steps) if fused else (lambda c: c == 0)
+    want_rows = (lambda c: c == 0) if fused else (lambda c: c >= 1)
+    if not (want_tree(counts["K1_tree"]) and want_rows(counts["K1_rows"]) and counts["K2"] >= 1
+            and counts["K3"] >= 1):
+        raise AssertionError(f"{label}: launches {counts} (fused={fused}, {steps} steps)")
 
 
 def _drive_path(torch, be, fused: bool, label: str) -> dict:
@@ -319,9 +563,12 @@ def _drive_path(torch, be, fused: bool, label: str) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    # the caching allocator may hand out a whole cached block for a smaller
+    # request; the requested bytes leave that rounding out
+    requested = torch.cuda.memory_stats().get("requested_bytes.all.peak")
     same = all((a == b).all() for a, b in zip(imgs, imgs2))
     print(f"{label}: warm wall {warm_s:.4f} s, peak memory {peak} bytes ({peak / 2**30:.2f} GiB), "
-          f"keyframes reproduce: {same}", flush=True)
+          f"peak requested {requested} bytes, keyframes reproduce: {same}", flush=True)
     print(f"{label}: phases (warm run, host clock): {json.dumps(be.last_report.phases)}", flush=True)
     print(f"{label}: tree_fracts {[round(f, 6) for f in be.tree_fracts]}", flush=True)
     print(f"{label}: similarities {list(be.tree_similarities)}", flush=True)
@@ -333,7 +580,7 @@ def _drive_path(torch, be, fused: bool, label: str) -> dict:
 def main_path(torch, be) -> dict:
     """The port's entry points at full width: the default (fused) path, the
     per-level path, the streaming I420 contract and the cost model. Returns
-    the default path's launch counts."""
+    each path's launch counts."""
     from latentblending_tpu_torch.engine.blending import resolve_image
     from latentblending_tpu_torch.video.i420 import rgb_to_i420
 
@@ -368,7 +615,73 @@ def main_path(torch, be) -> dict:
         "dt_step_by_batch": be._dt_step_by_batch, "dt_unet_step": be.dt_unet_step,
         "dt_vae": be.dt_vae, "dt_sync": be.dt_sync,
     }), flush=True)
-    return fused["counts"]
+    return {"fused": fused["counts"], "per-level": per_level["counts"]}
+
+
+def profile_paths(torch, be) -> None:
+    """One warm run_transition of each path under torch.profiler
+    (after a warm-up call of each, in turns). Prints the profiled wall, the
+    device time (sum of the kernel events; one stream, so they do not
+    overlap), the busy share, the kernel count, K1's launches and the
+    gather/select kernels, and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # LB_FUSED=1: after measure_sync_overhead the engine is calibrated, and
+    # its auto gate would price the paths instead of taking the fused one
+    for label, gate in (("fused", "1"), ("per-level", "0")):
+        with _lb_fused(gate):
+            be.run_transition(fixed_seeds=SEEDS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                be.run_transition(fixed_seeds=SEEDS)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name: dict = {}
+        for e in kernels:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+        device_ms = sum(t for t, _ in by_name.values())
+
+        def count(*words):
+            return sum(c for name, (_, c) in by_name.items() if any(w in name for w in words))
+
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"profile {label}: " + json.dumps({
+            "fused": bool(be.last_report.levels[0].get("fused")), "profiled_wall_s": wall, "device_ms": device_ms, "busy_share": device_ms / 1e3 / wall,
+            "kernel_calls": len(kernels), "k1_slerp_kernel_calls": count("slerp_kernel"),
+            "index_select_calls": count("index_select", "indexSelect"),
+            "where_calls": count("where"),
+            "top": [{"name": name[:90], "ms": t, "calls": c} for name, (t, c) in top],
+        }), flush=True)
+
+
+def _kernels_line(kres: dict, counts: dict) -> list:
+    """One entry per kernel entry point: its first case's numbers and its
+    launches during the counted run of each path."""
+    replaces_k1 = "latentblending_tpu/ops/pallas_kernels.py:87"
+    meta = {
+        "K1_rows": ("slerp_rows (cluster-split rows)", "latentblending_tpu_torch/csrc/slerp.cu", replaces_k1),
+        "K1_tree": ("slerp_tree_step (parental mix + crossfeed, cluster-split rows)",
+                    "latentblending_tpu_torch/csrc/slerp.cu", replaces_k1),
+        "K2": ("attention_d64_bf16 (wgmma, TMA)", "latentblending_tpu_torch/csrc/attention_d64_bf16.cu",
+               "latentblending_tpu/models/layers.py:192"),
+        "K3": ("attention_d512_f32 (3xTF32 mma.sync, 2-CTA cluster)",
+               "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
+    }
+    kernels = []
+    for k, (name, source, replaces) in meta.items():
+        first = kres[k][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts["fused"][k] + counts["per-level"][k],
+            "launches_by_path": {path: c[k] for path, c in counts.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in kres[k]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"], "shape": first["shape"],
+        })
+    return kernels
 
 
 def main() -> int:
@@ -408,22 +721,11 @@ def main() -> int:
           f"and engine in {time.perf_counter() - t0:.3f} s", flush=True)
     if unet_params != 2_567_463_684:
         raise AssertionError(f"UNet has {unet_params} parameters, not SDXL's 2567463684")
+    print(f"allocated before the main path: {torch.cuda.memory_allocated()} bytes", flush=True)
     counts = main_path(torch, be)
+    profile_paths(torch, be)
 
-    sources = {"K1": "latentblending_tpu_torch/csrc/slerp.cu",
-               "K2": "latentblending_tpu_torch/csrc/attention_d64_bf16.cu",
-               "K3": "latentblending_tpu_torch/csrc/attention_d512_f32.cu"}
-    replaces = {"K1": "latentblending_tpu/ops/pallas_kernels.py:87",
-                "K2": "latentblending_tpu/models/layers.py:192",
-                "K3": "latentblending_tpu/models/layers.py:373"}
-    names = {"K1": "slerp_rows", "K2": "attention_d64_bf16 (wgmma, TMA)",
-             "K3": "attention_d512_f32 (3xTF32 mma.sync, 2-CTA cluster)"}
-    kernels = [
-        {"name": names[k], "route": "cuda", "source": sources[k], "replaces": replaces[k],
-         "launches": counts[k], "max_abs_err": max(c["max_abs_err"] for c in kres[k]),
-         "ms": kres[k][0]["ms"], "plain_ms": kres[k][0]["plain_ms"]}
-        for k in ("K1", "K2", "K3")
-    ]
+    kernels = _kernels_line(kres, counts)
     print(f"chip_smoke.py ran for {time.perf_counter() - t_start:.1f} s", flush=True)
     print(_card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-// Hand-written PTX helpers shared by the attention kernels (sm_90a):
+// Hand-written PTX helpers shared by the port's kernels (sm_90a):
 // mbarriers, TMA tile loads, cp.async, wgmma (bf16, 128-byte swizzle),
 // mma.sync TF32 with a hi/lo operand split, and thread-block-cluster
 // shared memory. Header only; every function is inlined into its kernel.
@@ -191,6 +191,25 @@ __device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, uint32_t rank
 
 __device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a, float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// cluster_sync split in two: work between the arrive and the wait overlaps
+// the peers' arrival (e.g. stores after the last read of a peer's memory).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace lb

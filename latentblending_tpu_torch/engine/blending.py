@@ -6,7 +6,8 @@ takes one of two execution shapes, chosen by the JAX package's gate
 
 - the fused single-level transition (`_run_transition_fused`, the default
   for a one-level plan): ONE denoise_scan_tree call computes both edges and
-  every stem (kernel K1 for the live parental mix and the crossfeed), then
+  every stem (one launch of kernel K1's tree step per denoise step: the
+  live parental mix and the crossfeed), then
   decode → convert → host copy in chunks, in fract order;
 - the per-level path (LB_FUSED=0, a recycled edge 2, or a multi-level
   plan): both keyframe trajectories (one batch of 2 when they are

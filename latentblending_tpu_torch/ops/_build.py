@@ -1,11 +1,13 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by nvcc into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers: a build takes
-seconds instead of minutes):
+Every `csrc/*.cu` file is compiled by its own nvcc, all started together,
+and the objects are linked into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers: a build takes seconds
+instead of minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<hash>/liblbkernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o _build/<hash>/<name>.o csrc/<name>.cu          (one per source)
+    nvcc <same flags> -shared -o _build/<hash>/liblbkernels.so _build/<hash>/*.o
 
 The library is built at first use into `latentblending_tpu_torch/_build/`
 (git-ignored), in a directory named by a hash of the sources and flags, so
@@ -27,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +37,8 @@ _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p, never as int)
     "lb_slerp_rows_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, _P],
     "lb_slerp_rows_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, _P],
+    "lb_slerp_tree_step_f32": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, _P],
+    "lb_slerp_tree_step_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, _P],
     "lb_attention_fwd_d64_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "lb_attention_fwd_d512_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
@@ -67,20 +71,35 @@ def find_nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the hashed build directory; return the .so path."""
+    """Compile csrc/*.cu into the hashed build directory; return the .so path.
+    verbose: print ptxas's registers, shared memory and spills per kernel."""
     out_dir = BUILD_DIR / source_hash()
     lib = out_dir / "liblbkernels.so"
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"liblbkernels.{os.getpid()}.tmp.so"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+        logs.append(out + err)
+    tmp = out_dir / f"liblbkernels.{tag}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     if verbose:
-        print(res.stdout + res.stderr)
+        print("".join(logs), flush=True)
     os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
     return lib
 

@@ -11,8 +11,8 @@ cache:
   DPM-Solver++ 2M).
 - `denoise_scan_tree` (the fused single-level transition): one loop over
   all N steps for the edges and every stem of a level, whose crossfeed
-  targets are live parental slerps of other rows of the same batch (K1
-  for both the parental mix and the crossfeed).
+  targets are live parental slerps of other rows of the same batch (one
+  launch of K1's tree step per step: the parental mix and the crossfeed).
 
 The segmented multi-level scan (`denoise_scan_tree_seg`) is not ported.
 Latents keep the JAX package's layout, [B, h, w, 4]; the UNet callable
@@ -32,7 +32,7 @@ from latentblending_tpu_torch.ops.scheduler import (
     euler_step,
     scale_model_input,
 )
-from latentblending_tpu_torch.ops.slerp import slerp_rows
+from latentblending_tpu_torch.ops.slerp import slerp_rows, slerp_tree_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,21 +210,21 @@ def denoise_scan_tree(
     use2_mat = torch.as_tensor(tables[4][:, None] & (np.arange(M)[:, None] > pins[None, :]), device=dev)
     mix_coeffs = mix_coeffs.to(device=dev, dtype=torch.float32)
     parent_fract = parent_fract.to(device=dev, dtype=torch.float32).contiguous()
-    p1 = parent_idx[:, 0].to(device=dev, dtype=torch.long)
-    p2 = parent_idx[:, 1].to(device=dev, dtype=torch.long)
+    p1 = parent_idx[:, 0].to(device=dev, dtype=torch.long).contiguous()
+    p2 = parent_idx[:, 1].to(device=dev, dtype=torch.long).contiguous()
+    wmask = None
     if win_steps is not None:
-        wmask = torch.as_tensor(win_mask, dtype=torch.bool, device=dev).reshape(-1, 1, 1, 1)
+        win_steps = win_steps.to(device=dev, dtype=latents_start.dtype).contiguous()
+        wmask = torch.as_tensor(win_mask, dtype=torch.bool, device=dev)
 
     latents = latents_start
     old_denoised = torch.zeros(latents.shape, dtype=torch.float32, device=dev)
     traj = []
     for j in range(M):
-        p1_state = latents.index_select(0, p1)
-        if win_steps is not None:
-            p1_state = torch.where(wmask, win_steps[j].to(latents.dtype).expand_as(latents), p1_state)
-        # live parental mix, then the crossfeed slerp — both kernel K1 on the GPU
-        m_t = slerp_rows(p1_state, latents.index_select(0, p2), parent_fract)
-        latents = slerp_rows(latents, m_t, mix_coeffs[j].contiguous())
+        # live parental mix, then the crossfeed slerp toward it — one launch
+        # of kernel K1's tree step on the GPU
+        latents = slerp_tree_step(latents, p1, p2, parent_fract, mix_coeffs[j].contiguous(),
+                                  None if win_steps is None else win_steps[j], wmask)
         latents, old_denoised = _eps_and_step(
             plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
             sig_w[j], sigp_w[j], sign_w[j], t_w[j], None if noise is None else noise[j],

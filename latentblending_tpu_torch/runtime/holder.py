@@ -2,7 +2,8 @@
 scheduler tables and tokenizers), in PyTorch.
 
 Counterpart of latentblending_tpu/runtime/holder.py. The holder owns torch
-modules on an explicit `device`; the public tensors keep the JAX package's
+modules on `device`, the card unless the caller passes device="cpu" (it
+raises where there is no card); the public tensors keep the JAX package's
 layout (latents [B,h,w,4], images [B,H,W,3] in [-1,1]) and the holder
 permutes to NCHW at the UNet/VAE boundary. The UNet runs in `dtype` (bf16
 by default), the VAE in float32 (the reference's force_upcast, and what the
@@ -99,13 +100,22 @@ def build_modules(spec: ModelSpec, dtype: torch.dtype, device) -> dict[str, nn.M
     return {k: m.to_empty(device=device).eval().requires_grad_(False) for k, m in mods.items()}
 
 
+def _holder_device(device) -> torch.device:
+    """The holder's device; a CUDA device needs a card (no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("SDXLHolder: no CUDA device; pass device=\"cpu\" to run on the CPU")
+    return device
+
+
 class SDXLHolder:
     def __init__(self, spec: ModelSpec | str, modules: dict[str, nn.Module], tokenizer1=None, tokenizer2=None,
-                 dtype: torch.dtype = torch.bfloat16, device="cpu"):
-        """modules: {'unet', 'vae', 'clip1', 'clip2'} port nn.Modules on `device`."""
+                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        """modules: {'unet', 'vae', 'clip1', 'clip2'} port nn.Modules on `device`
+        (the card unless the caller asks for the CPU)."""
         self.spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = _holder_device(device)
         self.is_sdxl_turbo = self.spec.is_sdxl_turbo
         self.unet = modules["unet"]
         self.vae = modules["vae"]
@@ -137,12 +147,12 @@ class SDXLHolder:
 
     @classmethod
     def from_random(cls, spec: ModelSpec | str = "tiny-turbo", seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                    device="cpu", **kw) -> "SDXLHolder":
+                    device="cuda", **kw) -> "SDXLHolder":
         """Random-weight holder of the full architecture, built and
         initialised directly on `device` (initialisation as the JAX
         package's flax init, drawn from a torch.Generator seeded with `seed`)."""
         spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
-        device = torch.device(device)
+        device = _holder_device(device)
         mods = build_modules(spec, dtype, device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         for m in mods.values():
@@ -151,11 +161,12 @@ class SDXLHolder:
 
     @classmethod
     def from_state_dicts(cls, spec: ModelSpec | str, state_dicts: dict[str, dict], dtype: torch.dtype = torch.bfloat16,
-                         device="cpu", **kw) -> "SDXLHolder":
+                         device="cuda", **kw) -> "SDXLHolder":
         """Holder from {'unet','vae','clip1','clip2'} state dicts in the port's
         (HF) key names, e.g. from models.weights.params_from_jax."""
         spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
-        mods = build_modules(spec, dtype, torch.device(device))
+        device = _holder_device(device)
+        mods = build_modules(spec, dtype, device)
         for name, m in mods.items():
             m.load_state_dict(state_dicts[name], strict=True)
         return cls(spec, mods, dtype=dtype, device=device, **kw)

@@ -204,7 +204,7 @@ def test_fused_variants_match_jax(variant, holders, monkeypatch):
 
 def test_port_fused_equals_per_level_euler(monkeypatch):
     """Deterministic Euler: the fused scan reproduces the per-level path."""
-    tdh = THolder.from_random("tiny-turbo", seed=0, dtype=torch.float32)
+    tdh = THolder.from_random("tiny-turbo", seed=0, dtype=torch.float32, device="cpu")
     be = _setup(TEngine(tdh), stems=5)
     monkeypatch.setenv("LB_FUSED", "0")
     imgs_ref = [im.copy() for im in be.run_transition(fixed_seeds=[5, 6])]
@@ -222,7 +222,7 @@ def test_port_fused_equals_per_level_euler(monkeypatch):
 
 
 def test_gate_fallbacks(monkeypatch):
-    tdh = THolder.from_random("tiny-turbo", seed=1, dtype=torch.float32)
+    tdh = THolder.from_random("tiny-turbo", seed=1, dtype=torch.float32, device="cpu")
     be = _setup(TEngine(tdh), stems=3)
     monkeypatch.delenv("LB_FUSED", raising=False)
     be.run_transition(fixed_seeds=[1, 2])
@@ -249,7 +249,7 @@ def test_fused_calibration_is_warm_only_and_separate(monkeypatch):
     """The first fused call of a holder is cold (no sample); the second
     calibrates dt_unet_step_fused and the output tail, not dt_unet_step."""
     monkeypatch.delenv("LB_FUSED", raising=False)
-    be = _setup(TEngine(THolder.from_random("tiny-turbo", seed=1, dtype=torch.float32)), stems=3)
+    be = _setup(TEngine(THolder.from_random("tiny-turbo", seed=1, dtype=torch.float32, device="cpu")), stems=3)
     be.run_transition(fixed_seeds=[1, 2])
     assert not be.dh.last_run_was_warm and be.dt_unet_step_fused is None
     be.run_transition(fixed_seeds=[1, 2])
@@ -292,7 +292,7 @@ def test_cost_model_matches_jax(gate, holders, monkeypatch):
 
 
 def test_measure_sync_overhead_takes_min(monkeypatch):
-    be = TEngine(THolder.from_random("tiny-turbo", seed=1, dtype=torch.float32))
+    be = TEngine(THolder.from_random("tiny-turbo", seed=1, dtype=torch.float32, device="cpu"))
     assert be.dt_sync is None
     got = be.measure_sync_overhead(reps=3)
     assert got == be.dt_sync and 0.0 <= got < 5.0

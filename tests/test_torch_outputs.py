@@ -64,7 +64,7 @@ def test_decoded_images_match_jax(holders):
 def test_streaming_contract(monkeypatch):
     monkeypatch.delenv("LB_FUSED", raising=False)
     monkeypatch.delenv("LB_KEYFRAME_I420", raising=False)
-    be = BlendingEngine(SDXLHolder.from_random("tiny-turbo", seed=2, dtype=torch.float32))
+    be = BlendingEngine(SDXLHolder.from_random("tiny-turbo", seed=2, dtype=torch.float32, device="cpu"))
     be.set_prompt1("a forest")
     be.set_prompt2("a city")
     rgb = [im.copy() for im in be.run_transition(fixed_seeds=[3, 4])]

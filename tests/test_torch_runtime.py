@@ -113,3 +113,21 @@ def test_holder_decode_matches_jax(holders):
     # seeded noise: a torch.Generator draw scaled by init_noise_sigma
     want_noise = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(3))
     torch.testing.assert_close(tdh.get_noise(3), want_noise * tdh.schedule.init_noise_sigma)
+
+
+def test_holder_defaults_to_the_card():
+    """SDXLHolder, from_random and from_state_dicts default to device
+    "cuda"; without a card, a holder built without device= raises instead
+    of building on the CPU."""
+    import inspect
+
+    from latentblending_tpu_torch.runtime.holder import SDXLHolder
+
+    for fn in (SDXLHolder.__init__, SDXLHolder.from_random, SDXLHolder.from_state_dicts):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SDXLHolder.from_random("tiny-turbo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SDXLHolder.from_state_dicts("tiny-turbo", {})

@@ -62,7 +62,7 @@ def test_swap_forward_and_recycle(monkeypatch):
     from latentblending_tpu_torch.runtime.holder import SDXLHolder
 
     monkeypatch.setenv("LB_FUSED", "0")
-    be = _setup(TEngine(SDXLHolder.from_random("tiny-turbo", seed=1, dtype=torch.float32)))
+    be = _setup(TEngine(SDXLHolder.from_random("tiny-turbo", seed=1, dtype=torch.float32, device="cpu")))
     be.set_branching(nmb_max_branches=4)
     be.run_transition(fixed_seeds=[5, 6])
     last = be.tree_latents[-1][-1].clone()
