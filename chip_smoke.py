@@ -11,13 +11,14 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    and prints the build time, ptxas's registers/spills per kernel and the
    tensor-core instruction counts of the built SASS;
 3. runs each kernel at the shapes of the SDXL-Turbo 512² main path — the
-   per-level and the fused transition — and of SDXL-base 1024², against
-   its plain PyTorch version on the same inputs: K1 slerp_rows at
-   [2|10|12|40,64,64,4], [2,128,128,4] (bf16 and f32), ragged rows and a
-   misaligned row (the scalar path), exact 0/1 fractions; K1
+   per-level and the fused transition — and of the SDXL-base 1024² paths,
+   against its plain PyTorch version on the same inputs: K1 slerp_rows at
+   [2|10|12|40,64,64,4], [2|3|90,128,128,4] (bf16, [2,…] also f32), ragged
+   rows and a misaligned row (the scalar path), exact 0/1 fractions; K1
    slerp_tree_step at [12,64,64,4] with and without a window row, pins
-   and a self-parent row, and on 1024² and ragged rows; the K1 wrappers'
-   refusals; K2/K3 at every path shape plus a peaked case (q scaled by 4).
+   and a self-parent row, at [5|6|10,128,128,4] and on ragged rows; the K1
+   wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
+   batch [20,4096,10,64]) plus a peaked case (q scaled by 4).
    For each case it prints the max abs/rel error, the kernel's device time
    (CUDA-graph replay of 10 launches, median of 10), the time of one call
    (CUDA events, median of 20), the plain version's and, for K2/K3,
@@ -33,8 +34,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    set_negative_prompt, then
    - run_transition(fixed_seeds=[420, 421]) on the default path, which must
      be the fused one: 12 uint8 512×512 keyframes, 11 finite similarities,
-     slerp_tree_step launched once per step (4), slerp_rows never, K2 and
-     K3 launched; first and warm wall, peak memory;
+     each kernel launched exactly as often as the plan gives
+     (_expected_launches: slerp_tree_step once per step, 4; slerp_rows
+     never; K2 40; K3 3); first and warm wall, peak memory;
    - the same with LB_FUSED=0 (the per-level path: slerp_rows, K2, K3);
    - run_transition_streaming(keyframe_format="i420"): each resolved handle
      within 1 of the host I420 conversion of the fused RGB keyframe;
@@ -42,7 +44,19 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
      measured warm walls of both paths;
    - one warm run of each path under torch.profiler: device time, busy
      share, kernel counts and the costliest kernels;
-6. prints one JSON line with every kernel's numbers, then the final line
+6. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
+   benchmark_speed; negative prompt; set_branching(depth_strength=0.5,
+   nmb_max_branches=10), the plan [15,18,21,24,27] x [3,2,1,1,1]; then the
+   measured-policy per-level path, the predictive policy's segmented
+   fused-multi path and its per-level path (LB_FUSED=0), each cold and
+   warm: 10 keyframes, 9 finite similarities, the exact launches (fused-
+   multi: tree step 30, slerp_rows 0, K2 2100, K3 10; per-level: tree step
+   0, slerp_rows 80, K2 5250, K3 10), identical tree_fracts on the two
+   predictive paths, walls, both memory peaks; then the three warm walls
+   again in turns (b, c, a, a, c, b) with the card's clock and power, one
+   profiled run of each predictive path, and the cost model's predictions
+   beside the measured walls;
+7. prints one JSON line with every kernel's numbers, then the final line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the final line.
@@ -75,6 +89,14 @@ K3_REL_BOUND = 1e-4
 def _card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def _card_state() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
 
@@ -398,20 +420,32 @@ def kernel_phases(torch) -> dict:
                        _slerp_case(torch, g, (4, 16, 16, 4), f32),
                        _slerp_case(torch, g, (3, 5, 7, 3), f32),
                        _slerp_case(torch, g, (3, 5, 7, 3), bf16),
-                       _slerp_case(torch, g, (2, 1024), f32, misaligned=True)],
+                       _slerp_case(torch, g, (2, 1024), f32, misaligned=True),
+                       # SDXL-base 1024² per-level: level 1's crossfeed
+                       # (3 stems) and parental mix (30 steps x 3 stems)
+                       _slerp_case(torch, g, (3, 128, 128, 4), bf16),
+                       _slerp_case(torch, g, (90, 128, 128, 4), bf16)],
            "K1_tree": [_tree_case(torch, g, (12, 64, 64, 4), bf16),
                        _tree_case(torch, g, (12, 64, 64, 4), bf16, window=False),
                        _tree_case(torch, g, (12, 64, 64, 4), f32),
                        _tree_case(torch, g, (12, 64, 64, 4), f32, window=False),
                        _tree_case(torch, g, (6, 128, 128, 4), f32, one_chunk=False),
-                       _tree_case(torch, g, (6, 5, 7, 3), f32)]}
+                       _tree_case(torch, g, (6, 5, 7, 3), f32),
+                       # SDXL-base 1024² segmented scan: the last segment's
+                       # live rows, and the first stem segment's
+                       _tree_case(torch, g, (10, 128, 128, 4), bf16, window=False),
+                       _tree_case(torch, g, (5, 128, 128, 4), bf16, window=False)]}
     _wrapper_refusals(torch, g)
     # K2 / K3 at every shape of the path (SDXL-Turbo 512²: UNet batches 2,
-    # 10 and, fused, 12; VAE decode chunks 2-4) and of SDXL-base 1024²,
+    # 10 and, fused, 12; VAE decode chunks 2-4) and of SDXL-base 1024²
+    # (UNet batches 4-20 with CFG at both attention levels; decode chunk 1),
     # plus one peaked case each (q scaled by 4: the running max is rescaled
     # across key tiles)
+    # SDXL-base 1024² with CFG: the edges' batch 4 and the segmented
+    # scan's largest, 20
     k2_cases = [((10, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((12, 1024, 10, 64), 1.0),
-                ((2, 4096, 10, 64), 1.0), ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
+                ((2, 4096, 10, 64), 1.0), ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0),
+                ((4, 4096, 10, 64), 1.0), ((20, 4096, 10, 64), 1.0), ((20, 1024, 20, 64), 1.0)]
     k3_cases = [((4, 4096, 1, 512), 1.0), ((2, 4096, 1, 512), 1.0), ((1, 16384, 1, 512), 1.0),
                 ((2, 4096, 1, 512), 4.0)]
     res["K2"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k2_cases]
@@ -521,41 +555,71 @@ def _read_counts() -> dict:
             "K3": attention.launches_vae}
 
 
-def _check_transition(be, imgs, counts: dict, fused: bool, label: str) -> None:
-    """12 uint8 keyframes of the holder's size, 11 finite similarities,
-    the expected path, and its kernels launched: the fused path K1's tree
-    step once per denoise step and slerp_rows never, the per-level path
-    slerp_rows and never the tree step; both K2 and K3."""
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _expected_launches(be, path: str, k2_per_eval: int) -> dict:
+    """The launches of each kernel one run_transition of `path` makes on
+    the engine's plan: K1's tree step once per denoise step on the fused
+    paths; on the per-level path slerp_rows once per step of each denoise
+    call (the edges' and each round's) and once per round for the parental
+    mix; K2 k2_per_eval times per UNet eval; K3 once per VAE decode call
+    (decode_chunk keyframes each)."""
+    N = be.dh.num_inference_steps
+    dc = be.dh.decode_chunk
+    n_kf = 2 + sum(int(n) for n in be.list_nmb_stems)
+    if path in ("fused", "fused-multi"):
+        fc = int(os.environ.get("LB_FETCH_CHUNK", "4"))
+        k3 = sum(_ceil(min(fc, n_kf - j), dc) for j in range(0, n_kf, fc))
+        return {"K1_rows": 0, "K1_tree": N, "K2": N * k2_per_eval, "K3": k3}
+    rounds = [(int(idx), k) for idx, n in zip(be.list_idx_injection, be.list_nmb_stems)
+              for k in be._round_sizes(int(n))]
+    evals = N + sum(N - idx for idx, _ in rounds)
+    return {"K1_rows": N + sum(N - idx + 1 for idx, _ in rounds), "K1_tree": 0, "K2": evals * k2_per_eval,
+            "K3": _ceil(2, dc) + sum(_ceil(k, dc) for _, k in rounds)}
+
+
+def _report_path(be) -> str:
+    levels = be.last_report.levels
+    if all(e.get("seg") for e in levels):
+        return "fused-multi"
+    return "fused" if levels[0].get("fused") else "per-level"
+
+
+def _check_transition(be, imgs, counts: dict, path: str, k2_per_eval: int, label: str) -> None:
+    """The plan's keyframes (2 edges + its stems) as uint8 of the holder's
+    size, one finite similarity per gap, the expected path, and exactly the
+    launches _expected_launches gives for it."""
     hw = (be.dh.height_img, be.dh.width_img, 3)
-    if bool(be.last_report.levels[0].get("fused")) != fused:
-        raise AssertionError(f"{label}: expected fused={fused}, report levels {be.last_report.levels}")
-    if len(imgs) != 12:
-        raise AssertionError(f"{label}: expected 12 keyframes, got {len(imgs)}")
+    n_kf = 2 + sum(int(n) for n in be.list_nmb_stems)
+    if _report_path(be) != path:
+        raise AssertionError(f"{label}: expected the {path} path, report levels {be.last_report.levels}")
+    if len(imgs) != n_kf:
+        raise AssertionError(f"{label}: expected {n_kf} keyframes, got {len(imgs)}")
     for im in imgs:
         if im.shape != hw or str(im.dtype) != "uint8":
             raise AssertionError(f"{label}: bad keyframe {im.shape} {im.dtype}")
     sims = list(be.tree_similarities)
-    if len(sims) != 11 or not all(s == s and abs(s) != float("inf") for s in sims):
-        raise AssertionError(f"{label}: similarities not 11 finite values: {sims}")
-    steps = be.dh.num_inference_steps
-    want_tree = (lambda c: c == steps) if fused else (lambda c: c == 0)
-    want_rows = (lambda c: c == 0) if fused else (lambda c: c >= 1)
-    if not (want_tree(counts["K1_tree"]) and want_rows(counts["K1_rows"]) and counts["K2"] >= 1
-            and counts["K3"] >= 1):
-        raise AssertionError(f"{label}: launches {counts} (fused={fused}, {steps} steps)")
+    if len(sims) != n_kf - 1 or not all(s == s and abs(s) != float("inf") for s in sims):
+        raise AssertionError(f"{label}: similarities not {n_kf - 1} finite values: {sims}")
+    want = _expected_launches(be, path, k2_per_eval)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
 
-def _drive_path(torch, be, fused: bool, label: str) -> dict:
+def _drive_path(torch, be, path: str, label: str, k2_per_eval: int) -> dict:
     """First (counted) and warm run_transition of one path; returns its
-    numbers and the first run's keyframes."""
+    numbers and the first run's keyframes and tree."""
     _zero_counts()
     t0 = time.perf_counter()
     imgs = [im.copy() for im in be.run_transition(fixed_seeds=SEEDS)]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = _read_counts()
-    _check_transition(be, imgs, counts, fused, label)
-    print(f"{label}: launches during run_transition {json.dumps(counts)}, first call {first_s:.4f} s", flush=True)
+    _check_transition(be, imgs, counts, path, k2_per_eval, label)
+    print(f"{label}: launches during run_transition {json.dumps(counts)} (as expected), first call {first_s:.4f} s",
+          flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -568,13 +632,20 @@ def _drive_path(torch, be, fused: bool, label: str) -> dict:
     requested = torch.cuda.memory_stats().get("requested_bytes.all.peak")
     same = all((a == b).all() for a, b in zip(imgs, imgs2))
     print(f"{label}: warm wall {warm_s:.4f} s, peak memory {peak} bytes ({peak / 2**30:.2f} GiB), "
-          f"peak requested {requested} bytes, keyframes reproduce: {same}", flush=True)
+          f"peak requested {requested} bytes, keyframes reproduce: {same}; card after it (SM clock, "
+          f"power, temperature): {_card_state()}", flush=True)
     print(f"{label}: phases (warm run, host clock): {json.dumps(be.last_report.phases)}", flush=True)
     print(f"{label}: tree_fracts {[round(f, 6) for f in be.tree_fracts]}", flush=True)
     print(f"{label}: similarities {list(be.tree_similarities)}", flush=True)
-    if not same:
-        raise AssertionError(f"{label}: run_transition with the same seeds gave different keyframes")
-    return {"counts": counts, "first_s": first_s, "warm_s": warm_s, "peak": peak, "imgs": imgs}
+    if not same or _report_path(be) != path:
+        raise AssertionError(f"{label}: the warm run gave other keyframes or another path ({be.last_report.levels})")
+    return {"counts": counts, "first_s": first_s, "warm_s": warm_s, "peak": peak, "requested": requested,
+            "imgs": imgs, "fracts": list(be.tree_fracts)}
+
+
+# UNet self-attention layers on K2 per eval: at 512² the 640-channel level
+# (32², 10 layers); at 1024² also the 1280-channel level (32², 60 layers)
+K2_PER_EVAL = {512: 10, 1024: 70}
 
 
 def main_path(torch, be) -> dict:
@@ -584,9 +655,10 @@ def main_path(torch, be) -> dict:
     from latentblending_tpu_torch.engine.blending import resolve_image
     from latentblending_tpu_torch.video.i420 import rgb_to_i420
 
-    fused = _drive_path(torch, be, True, "fused (default)")
+    k2 = K2_PER_EVAL[be.dh.height_img]
+    fused = _drive_path(torch, be, "fused", "fused (default)", k2)
     with _lb_fused("0"):
-        per_level = _drive_path(torch, be, False, "per-level (LB_FUSED=0)")
+        per_level = _drive_path(torch, be, "per-level", "per-level (LB_FUSED=0)", k2)
 
     # streaming contract: pinned host copies behind CUDA events, I420 planes
     handles = be.run_transition_streaming(fixed_seeds=SEEDS, keyframe_format="i420")
@@ -602,7 +674,7 @@ def main_path(torch, be) -> dict:
     print(f"streaming i420: {len(planes)} handles → [{H * 3 // 2},{W}] uint8 planes in {len(cache)} host "
           f"batches, max |device - host rgb_to_i420| = {worst} (bound 1), fused={be.last_report.levels[0]}",
           flush=True)
-    if len(planes) != 12 or worst > 1 or be.last_report.levels[0].get("fused") is not True:
+    if len(planes) != len(fused["imgs"]) or worst > 1 or be.last_report.levels[0].get("fused") is not True:
         raise AssertionError(f"streaming i420 outside its bound: {len(planes)} planes, max diff {worst}, "
                              f"levels {be.last_report.levels}")
 
@@ -618,9 +690,96 @@ def main_path(torch, be) -> dict:
     return {"fused": fused["counts"], "per-level": per_level["counts"]}
 
 
-def profile_paths(torch, be) -> None:
-    """One warm run_transition of each path under torch.profiler
-    (after a warm-up call of each, in turns). Prints the profiled wall, the
+BASE_PLAN = ([15, 18, 21, 24, 27], [3, 2, 1, 1, 1])
+
+
+def base_phase(torch, turbo_dh) -> dict:
+    """SDXL-base 1024² at full width through BlendingEngine(dh), whose
+    constructor runs benchmark_speed: the holder takes the SDXL-Turbo
+    holder's four modules (the architecture is the same; only the UNet's
+    sample_size differs). Negative prompt set, then
+    set_branching(depth_strength=0.5, nmb_max_branches=10), the plan
+    [15,18,21,24,27] x [3,2,1,1,1]. Three paths, each cold and then warm:
+    (a) the default measured policy (per-level), (b) the predictive policy
+    under the auto gate (the segmented fused-multi path), (c) the
+    predictive policy with LB_FUSED=0 (per-level). (b) and (c) place the
+    same stems; their keyframes are compared. Returns each path's launches."""
+    from latentblending_tpu_torch.engine.blending import BlendingEngine
+    from latentblending_tpu_torch.runtime.holder import SDXL_BASE, SDXLHolder
+
+    t0 = time.perf_counter()
+    dh = SDXLHolder(SDXL_BASE, {k: getattr(turbo_dh, k) for k in ("unet", "vae", "clip1", "clip2")},
+                    dtype=torch.bfloat16, device="cuda")
+    be = BlendingEngine(dh)
+    torch.cuda.synchronize()
+    print(f"setup: SDXL-base {dh.height_img}² holder (the SDXL-Turbo modules) and engine with "
+          f"benchmark_speed in {time.perf_counter() - t0:.3f} s: " + json.dumps({
+              "dt_unet_step": be.dt_unet_step, "dt_vae": be.dt_vae, "dt_sync": be.dt_sync,
+              "dt_step_by_batch": be._dt_step_by_batch}), flush=True)
+    be.set_negative_prompt("blurry, low quality")  # read by the next embeddings
+    be.set_prompt1("photo of a forest at dawn, mist between the trees")
+    be.set_prompt2("photo of a city at night, neon lights in the rain")
+    be.set_branching(depth_strength=0.5, nmb_max_branches=10)
+    plan = (list(be.list_idx_injection), list(be.list_nmb_stems))
+    segs, row_steps = be._seg_plan(False)
+    print(f"base plan {plan}: segments {segs}, {row_steps} useful row-steps, guidance "
+          f"{be.guidance_scale_base} (CFG), {be.num_inference_steps} steps", flush=True)
+    if plan != BASE_PLAN:
+        raise AssertionError(f"base plan {plan}, expected {BASE_PLAN}")
+    k2 = K2_PER_EVAL[dh.height_img]
+    runs = {"base measured, per-level": _drive_path(torch, be, "per-level", "base (a) measured, per-level", k2)}
+    be.placement_policy = "predictive"
+    runs["base predictive, fused-multi"] = _drive_path(torch, be, "fused-multi", "base (b) predictive, fused-multi", k2)
+    with _lb_fused("0"):
+        runs["base predictive, per-level"] = _drive_path(torch, be, "per-level",
+                                                         "base (c) predictive, LB_FUSED=0", k2)
+    b, c = runs["base predictive, fused-multi"], runs["base predictive, per-level"]
+    lsb = _lsb(b["imgs"], c["imgs"])
+    print(f"base (b) vs (c): tree_fracts identical: {b['fracts'] == c['fracts']}, keyframes max {lsb} LSB apart "
+          f"(bf16 UNet; CFG batches 4 to 20 against 4, 6, 4, 2, 2, 2)", flush=True)
+    if b["fracts"] != c["fracts"]:
+        raise AssertionError(f"base (b) and (c) placed different stems: {b['fracts']} vs {c['fracts']}")
+
+    # warm walls again, in turns (b, c, a, a, c, b), with the card's state
+    # after each: whether a difference between the paths is the path's or
+    # the card's (a card under load may clock down at its power limit)
+    turns = {name: [] for name in runs}
+    b_, c_, a_ = "base predictive, fused-multi", "base predictive, per-level", "base measured, per-level"
+    for name in (b_, c_, a_, a_, c_, b_):
+        be.placement_policy = "measured" if "measured" in name else "predictive"
+        with _lb_fused("1" if "fused-multi" in name else "0"):
+            t0 = time.perf_counter()
+            be.run_transition(fixed_seeds=SEEDS)
+            torch.cuda.synchronize()
+            turns[name].append(time.perf_counter() - t0)
+        print(f"base turn {name}: warm wall {turns[name][-1]:.4f} s, path {_report_path(be)}, card {_card_state()}",
+              flush=True)
+        if _report_path(be) != ("fused-multi" if name == b_ else "per-level"):
+            raise AssertionError(f"base turn {name}: report levels {be.last_report.levels}")
+    # where the time goes on the two predictive paths (each ran warm just above)
+    be.placement_policy = "predictive"
+    profile_paths(torch, be, (("base predictive, fused-multi", "1"), ("base predictive, per-level", "0")))
+
+    # the cost model, calibrated by the runs above (dt_vae measured by
+    # benchmark_speed), beside the measured warm walls
+    preds = {}
+    for policy in ("measured", "predictive"):
+        be.placement_policy = policy
+        preds[policy] = {"predicted": be.predict_transition_time(), "planner_calibrated": be.planner_calibrated()}
+    print("base cost model: " + json.dumps({
+        **preds, "measured_warm_s": {name: [r["warm_s"]] + turns[name] for name, r in runs.items()},
+        "dt_unet_step_fused_multi": be.dt_unet_step_fused_multi, "dt_fused_output": be._dt_fused_output,
+        "dt_step_by_batch": be._dt_step_by_batch, "dt_unet_step": be.dt_unet_step, "dt_vae": be.dt_vae,
+        "dt_sync": be.dt_sync,
+    }), flush=True)
+    return {name: r["counts"] for name, r in runs.items()}
+
+
+def profile_paths(torch, be, paths=(("fused", "1"), ("per-level", "0"))) -> None:
+    """One run_transition of each (label, LB_FUSED) path under
+    torch.profiler, device activity only (every path ran warm before; the
+    profiler's processing of the host-side op events would take minutes on
+    the SDXL-base paths' 10^5 kernels). Prints the profiled wall, the
     device time (sum of the kernel events; one stream, so they do not
     overlap), the busy share, the kernel count, K1's launches and the
     gather/select kernels, and the kernels with the most device time."""
@@ -628,16 +787,17 @@ def profile_paths(torch, be) -> None:
 
     # LB_FUSED=1: after measure_sync_overhead the engine is calibrated, and
     # its auto gate would price the paths instead of taking the fused one
-    for label, gate in (("fused", "1"), ("per-level", "0")):
+    for label, gate in paths:
         with _lb_fused(gate):
-            be.run_transition(fixed_seeds=SEEDS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 be.run_transition(fixed_seeds=SEEDS)
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            raise AssertionError(f"profile {label}: the profiler recorded no device kernel")
         by_name: dict = {}
         for e in kernels:
             t, c = by_name.get(e.name, (0.0, 0))
@@ -649,7 +809,7 @@ def profile_paths(torch, be) -> None:
 
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         print(f"profile {label}: " + json.dumps({
-            "fused": bool(be.last_report.levels[0].get("fused")), "profiled_wall_s": wall, "device_ms": device_ms, "busy_share": device_ms / 1e3 / wall,
+            "path": _report_path(be), "profiled_wall_s": wall, "device_ms": device_ms, "busy_share": device_ms / 1e3 / wall,
             "kernel_calls": len(kernels), "k1_slerp_kernel_calls": count("slerp_kernel"),
             "index_select_calls": count("index_select", "indexSelect"),
             "where_calls": count("where"),
@@ -659,7 +819,7 @@ def profile_paths(torch, be) -> None:
 
 def _kernels_line(kres: dict, counts: dict) -> list:
     """One entry per kernel entry point: its first case's numbers and its
-    launches during the counted run of each path."""
+    launches during the counted (first) run of each path, summed."""
     replaces_k1 = "latentblending_tpu/ops/pallas_kernels.py:87"
     meta = {
         "K1_rows": ("slerp_rows (cluster-split rows)", "latentblending_tpu_torch/csrc/slerp.cu", replaces_k1),
@@ -675,7 +835,7 @@ def _kernels_line(kres: dict, counts: dict) -> list:
         first = kres[k][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts["fused"][k] + counts["per-level"][k],
+            "launches": sum(c[k] for c in counts.values()),
             "launches_by_path": {path: c[k] for path, c in counts.items()},
             "max_abs_err": max(c["max_abs_err"] for c in kres[k]),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -724,6 +884,9 @@ def main() -> int:
     print(f"allocated before the main path: {torch.cuda.memory_allocated()} bytes", flush=True)
     counts = main_path(torch, be)
     profile_paths(torch, be)
+    be.tree_latents, be._imgs_dev, be.tree_final_imgs = [None, None], [], []
+    torch.cuda.empty_cache()
+    counts.update(base_phase(torch, be.dh))
 
     kernels = _kernels_line(kres, counts)
     print(f"chip_smoke.py ran for {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,27 +1,36 @@
 """BlendingEngine — the diffusion-tree orchestrator, in PyTorch.
 
-Counterpart of latentblending_tpu/engine/blending.py. `run_transition`
-takes one of two execution shapes, chosen by the JAX package's gate
-(`LB_FUSED`: unset/"auto", "0" or "1", plus the single-level cost model):
+Counterpart of latentblending_tpu/engine/blending.py, for SDXL-Turbo (the
+one-level turbo plan) and SDXL-base (the time-based multi-level plan,
+whose step and decode costs `benchmark_speed` measures at construction).
+`run_transition` takes one of three execution shapes, chosen by the JAX
+package's gate (`LB_FUSED`: unset/"auto", "0" or "1", plus the cost
+model `predict_transition_time`):
 
 - the fused single-level transition (`_run_transition_fused`, the default
   for a one-level plan): ONE denoise_scan_tree call computes both edges and
   every stem (one launch of kernel K1's tree step per denoise step: the
   live parental mix and the crossfeed), then
   decode → convert → host copy in chunks, in fract order;
-- the per-level path (LB_FUSED=0, a recycled edge 2, or a multi-level
-  plan): both keyframe trajectories (one batch of 2 when they are
-  independent), then each injection level as one round of sibling stems —
-  placements by predicted gap splitting, one batched parental mix (K1),
-  one batched denoise, one batched VAE decode, one batched NLPD pass over
-  all gaps (the measured placement policy).
+- the segmented multi-level transition (`_run_transition_fused_multi`,
+  the default for a multi-level plan under the predictive placement
+  policy): ONE denoise_scan_tree_seg call whose batch grows as each level's
+  stems enter at their injection step, then the same output pipeline;
+- the per-level path (LB_FUSED=0, a recycled edge 2, stem_batch > 0, or a
+  multi-level plan under the measured policy): both keyframe trajectories
+  (one batch of 2 when they are independent), then each injection level
+  as rounds of sibling stems — placements by predicted gap splitting, one
+  batched parental mix (K1), one batched denoise, one batched VAE decode
+  and, under the measured placement policy, one batched NLPD pass over all
+  gaps between rounds (the predictive policy adopts the predicted gap
+  values instead and synchronizes once, after the last round).
 
 Keyframes leave the device as uint8 RGB or packed I420 through pinned
 host copies that are still in flight when the transition returns its
 handles (`run_transition_streaming`, `resolve_image`); the last round's
 gap similarities are deferred to `finalize_report`. `run_transition`
-resolves both and returns uint8 [H,W,3] numpy keyframes. The segmented
-multi-level transition, the predictive policy, LPIPS, image keyframes,
+resolves both and returns uint8 [H,W,3] numpy keyframes.
+`extend_transition` deepens a finished tree. LPIPS, image keyframes,
 movie writing, sessions and the tree cache are not ported yet
 (ROADMAP.md).
 """
@@ -34,6 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from latentblending_tpu_torch.engine.config import EngineConfig
 from latentblending_tpu_torch.models.perceptual import NLPDScorer
 from latentblending_tpu_torch.ops.interp import interpolate_linear_pytree
 from latentblending_tpu_torch.ops.schedules import (
@@ -41,6 +51,7 @@ from latentblending_tpu_torch.ops.schedules import (
     get_closest_idx,
     guidance_mid_dampening,
     parental_crossfeed_coeffs,
+    time_based_branching_plan,
     turbo_branching_plan,
 )
 from latentblending_tpu_torch.ops.slerp import slerp_rows
@@ -126,22 +137,44 @@ def _parental_mix(p1: torch.Tensor, p2: torch.Tensor, fract: torch.Tensor) -> to
     return slerp_rows(flat1, flat2, f).reshape(p1.shape)
 
 
+_COST_MODELS = ("batched", "reference")
+_PLACEMENT_POLICIES = ("measured", "predictive")
+
+
 class BlendingEngine:
     def __init__(
         self,
         dh: SDXLHolder,
         guidance_scale_mid_damper: float = 0.5,
         mid_compression_scaler: float = 1.2,
+        stem_batch: int = 0,
+        run_benchmark: Optional[bool] = None,
+        cost_model: str = "batched",
+        config: Optional[EngineConfig] = None,
     ):
+        """stem_batch: stems of a level per batched round (0: the whole
+        level; 1: the reference's one stem at a time). run_benchmark
+        (default: on base engines, whose time-based plan reads the step
+        costs): measure them now. cost_model: 'batched' times the B=2 edge
+        denoise and decode the run itself uses; 'reference' the
+        reference's single-branch step. config: an EngineConfig applied
+        last."""
         if not 0.0 < guidance_scale_mid_damper <= 1.0:
             raise ValueError(f"guidance_scale_mid_damper must be in (0,1], got {guidance_scale_mid_damper}")
-        if not dh.is_sdxl_turbo:
-            # the time-based branching plan needs the speed benchmark, which
-            # is not ported yet
-            raise NotImplementedError("the port's engine supports the turbo branching plan only")
+        if cost_model not in _COST_MODELS:
+            raise ValueError(f"cost_model must be one of {_COST_MODELS}, got {cost_model!r}")
         self.dh = dh
         self.guidance_scale_mid_damper = guidance_scale_mid_damper
         self.mid_compression_scaler = mid_compression_scaler
+        self.stem_batch = int(stem_batch)
+        self.cost_model = cost_model
+        # 'measured' re-scores every gap between levels (the reference);
+        # 'predictive' places all levels by predicted gap splitting, with no
+        # device read between levels (and, for a multi-level plan, the
+        # segmented fused transition)
+        self.placement_policy = "measured"
+        # NLPD is the only metric of the port (LPIPS is not ported)
+        self.similarity_metric = "nlpd"
         self.seed1 = 0
         self.seed2 = 0
         self.prompt1 = ""
@@ -168,13 +201,16 @@ class BlendingEngine:
         self.last_report = TransitionReport()
 
         # cost model of the fused-vs-per-level gate (seconds). dt_unet_step
-        # and dt_vae are placeholders until measured (turbo engines never
-        # run the speed benchmark); the rest is None until observed
+        # and dt_vae are placeholders until measured (turbo engines do not
+        # run the speed benchmark by default); the rest is None until observed
         self.dt_unet_step = 0.01
         self.dt_vae = 0.01
         self._dt_unet_step_measured = False
         # per-(row,step) cost of the fused scan (every row runs all N steps)
         self.dt_unet_step_fused: Optional[float] = None
+        # per useful (row,step) cost of the segmented scan (rows enter at
+        # their injection step, the batch grows per segment)
+        self.dt_unet_step_fused_multi: Optional[float] = None
         # one tiny synced op's wall: the per-round host↔device round trip
         self.dt_sync: Optional[float] = None
         # observed per-(row,step) per-level denoise cost by batch size
@@ -191,9 +227,115 @@ class BlendingEngine:
         self.set_branch1_crossfeed()
         self.set_parental_crossfeed()
         self.set_num_inference_steps()
+        if run_benchmark is None:
+            # turbo's branching plan never reads the timings
+            run_benchmark = not self.dh.is_sdxl_turbo
+        if run_benchmark:
+            self.benchmark_speed()
         self.set_branching()
+        if config is not None:
+            self.apply_config(config)
+
+    @property
+    def placement_policy(self) -> str:
+        return self._placement_policy
+
+    @placement_policy.setter
+    def placement_policy(self, policy: str) -> None:
+        if policy not in _PLACEMENT_POLICIES:
+            raise ValueError(f"placement_policy must be one of {_PLACEMENT_POLICIES}, got {policy!r}")
+        self._placement_policy = policy
+
+    def _predictive(self) -> bool:
+        """Whether rounds place by predicted splitting with no device read
+        between them (the predictive policy over whole-level rounds)."""
+        return self.placement_policy == "predictive" and self.stem_batch == 0
+
+    # ------------------------------------------------------- unified config
+
+    def get_config(self) -> EngineConfig:
+        """Every engine knob in one EngineConfig."""
+        d, t, n = self._branching_args
+        return EngineConfig(
+            width=self.dh.width_img, height=self.dh.height_img,
+            num_inference_steps=self.num_inference_steps,
+            guidance_scale=self.guidance_scale_base,
+            guidance_rescale=self.guidance_rescale,
+            guidance_scale_mid_damper=self.guidance_scale_mid_damper,
+            mid_compression_scaler=self.mid_compression_scaler,
+            negative_prompt=self.negative_prompt,
+            seed1=self.seed1, seed2=self.seed2,
+            branch1_crossfeed_power=self.branch1_crossfeed_power,
+            branch1_crossfeed_range=self.branch1_crossfeed_range,
+            branch1_crossfeed_decay=self.branch1_crossfeed_decay,
+            parental_crossfeed_power=self.parental_crossfeed_power,
+            parental_crossfeed_range=self.parental_crossfeed_range,
+            parental_crossfeed_decay=self.parental_crossfeed_decay,
+            depth_strength=d, t_compute_max_allowed=t, nmb_max_branches=n,
+            stem_batch=self.stem_batch, cost_model=self.cost_model,
+            placement_policy=self.placement_policy,
+            similarity_metric=self.similarity_metric,
+        )
+
+    def apply_config(self, cfg: EngineConfig) -> None:
+        """Apply an EngineConfig through the setters (None fields keep the
+        model's defaults). similarity_metric 'lpips' raises: LPIPS is not
+        ported."""
+        if cfg.similarity_metric not in (None, "nlpd"):
+            raise NotImplementedError(f"similarity_metric {cfg.similarity_metric!r}: the port has NLPD only")
+        if cfg.cost_model not in _COST_MODELS:
+            raise ValueError(f"cost_model must be one of {_COST_MODELS}, got {cfg.cost_model!r}")
+        if cfg.width is not None and cfg.height is not None:
+            self.set_dimensions((cfg.width, cfg.height))
+        self.set_guidance_scale(cfg.guidance_scale)
+        self.set_guidance_rescale(cfg.guidance_rescale)
+        self.guidance_scale_mid_damper = cfg.guidance_scale_mid_damper
+        self.mid_compression_scaler = cfg.mid_compression_scaler
+        if cfg.negative_prompt:
+            self.set_negative_prompt(cfg.negative_prompt)
+        self.seed1, self.seed2 = int(cfg.seed1), int(cfg.seed2)
+        self.set_branch1_crossfeed(cfg.branch1_crossfeed_power, cfg.branch1_crossfeed_range,
+                                   cfg.branch1_crossfeed_decay)
+        self.set_parental_crossfeed(cfg.parental_crossfeed_power, cfg.parental_crossfeed_range,
+                                    cfg.parental_crossfeed_decay)
+        self.stem_batch = int(cfg.stem_batch)
+        self.cost_model = cfg.cost_model
+        self.placement_policy = cfg.placement_policy
+        if cfg.num_inference_steps is not None:
+            self.set_num_inference_steps(cfg.num_inference_steps)
+        self.set_branching(cfg.depth_strength, cfg.t_compute_max_allowed, cfg.nmb_max_branches)
 
     # ------------------------------------------------------------- cost model
+
+    def benchmark_speed(self):
+        """Measure the per-step and decode costs the budget planner reads.
+
+        cost_model='batched' times what the run itself executes: the B=2
+        edge denoise and a B=2 decode, each the second of two calls, then
+        the sync round trip (measure_sync_overhead). 'reference' takes the
+        reference's single-branch measurement (SDXLHolder.benchmark_speed)."""
+        if self.cost_model == "reference":
+            self.dt_unet_step, self.dt_vae = self.dh.benchmark_speed()
+            self._dt_unet_step_measured = True
+            return
+        N = self.dh.num_inference_steps
+        lat0 = torch.cat([self.get_noise(0), self.get_noise(1)], dim=0)
+        cond = self._stack_conditionings([0.0, 1.0])
+        g = torch.tensor([self._guidance_at(0.0), self._guidance_at(1.0)], dtype=torch.float32)
+        with torch.no_grad():
+            _sync(self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g))
+            t0 = time.time()
+            traj = self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g)
+            _sync(traj)
+            sample = (time.time() - t0) / (2 * N)
+            self._observe_unet_step(sample)
+            self._dt_step_by_batch[2] = self._observe(self._dt_step_by_batch.get(2), sample)
+            _sync(self.dh.decode_to_pm1_batched(traj[-1]))
+            t0 = time.time()
+            pm1 = self.dh.decode_to_pm1_batched(traj[-1])
+            _sync(pm1)
+            self.dt_vae = (time.time() - t0) / 2
+        self.measure_sync_overhead(anchor=pm1)
 
     def measure_sync_overhead(self, reps: int = 3, anchor: Optional[torch.Tensor] = None) -> float:
         """(Re-)measure dt_sync as the MIN of `reps` tiny synchronized
@@ -219,68 +361,123 @@ class BlendingEngine:
 
         * fused path (single-level plans): denoise_scan_tree runs EVERY row
           for all N steps → N·B·dt_fused + the output-dispatch tail.
-        * per-level path: edge steps + Σ(N−idx)·k per round, priced at each
-          round's observed per-(row,step) cost for its batch size, plus
-          decode per keyframe and two sync round trips per measured round.
+        * fused-multi path (multi-level plans under the predictive policy):
+          denoise_scan_tree_seg runs only the useful row-steps → row-steps ·
+          dt_fused_multi + the output-dispatch tail.
+        * per-level path: edge steps + Σ(N−idx)·k per round of stem_batch
+          stems, priced at each round's observed per-(row,step) cost for its
+          batch size, plus decode per keyframe, and two sync round trips per
+          round under the measured policy (one in all under the predictive).
 
         Returns {"path", "t_predicted_s", "t_fused_s", "t_fused_multi_s",
-        "t_per_level_s"}; "path" is what the LB_FUSED=auto gate would pick.
-        The segmented multi-level path is not ported: t_fused_multi_s is
-        None."""
+        "t_per_level_s"}; "path" is what the LB_FUSED=auto gate would pick."""
         N = self.num_inference_steps
         plan_idx = [int(i) for i in self.list_idx_injection]
         plan_stems = [int(n) for n in self.list_nmb_stems]
         sync = self.dt_sync or 0.0
         dt = lambda b: self._dt_step_by_batch.get(b, self.dt_unet_step)  # noqa: E731
 
-        # ---- per-level path: one round per level (each level is one batch)
+        # ---- per-level path
         t_pl = N * dt(1) if recycled1 else 2 * N * dt(2)
         rounds = 0
         for idx, n in zip(plan_idx, plan_stems):
-            if n > 0:
-                t_pl += (N - idx) * n * dt(n)
+            for k in self._round_sizes(n):
+                t_pl += (N - idx) * k * dt(k)
                 rounds += 1
         t_pl += (sum(plan_stems) + 2) * self.dt_vae
-        t_pl += 2.0 * sync * rounds
+        t_pl += sync if self._predictive() else 2.0 * sync * rounds
 
+        out = self._dt_fused_output if self._dt_fused_output is not None else sync
         # ---- fused path (the gate's structural conditions)
         t_fused = None
-        if len(plan_idx) == 1 and plan_stems[0] >= 1 and plan_idx[0] >= 1:
+        if self.stem_batch == 0 and len(plan_idx) == 1 and plan_stems[0] >= 1 and plan_idx[0] >= 1:
             B = (1 if recycled1 else 2) + plan_stems[0]
             dtf = self.dt_unet_step_fused if self.dt_unet_step_fused is not None else self.dt_unet_step
-            out = self._dt_fused_output if self._dt_fused_output is not None else sync
             t_fused = N * B * dtf + out
 
+        # ---- segmented multi-level path: only the useful row-steps run
+        t_fm = None
+        if self._multilevel_fusable():
+            _, row_steps = self._seg_plan(recycled1)
+            dtfm = self.dt_unet_step_fused_multi
+            if dtfm is None:
+                dtfm = self.dt_unet_step_fused if self.dt_unet_step_fused is not None else self.dt_unet_step
+            t_fm = row_steps * dtfm + out
+
+        # the two fused paths exclude each other (the number of levels decides)
         gate = os.environ.get("LB_FUSED", "auto")
-        if t_fused is None or gate == "0":
-            path = "per-level"
-        elif gate == "1" or self.dt_sync is None or self.dt_unet_step_fused is None:
-            path = "fused"
+        if t_fused is not None:
+            fused_name, fused_t, fused_cal = "fused", t_fused, self.dt_unet_step_fused
+        elif t_fm is not None:
+            fused_name, fused_t, fused_cal = "fused-multi", t_fm, self.dt_unet_step_fused_multi
         else:
-            path = "fused" if t_fused <= t_pl else "per-level"
+            fused_name = fused_t = fused_cal = None
+        if fused_t is None or gate == "0":
+            path = "per-level"
+        elif gate == "1" or self.dt_sync is None or fused_cal is None:
+            path = fused_name
+        else:
+            path = fused_name if fused_t <= t_pl else "per-level"
         return {
             "path": path,
-            "t_predicted_s": t_pl if path == "per-level" else t_fused,
+            "t_predicted_s": t_pl if path == "per-level" else fused_t,
             "t_fused_s": t_fused,
-            "t_fused_multi_s": None,
+            "t_fused_multi_s": t_fm,
             "t_per_level_s": t_pl,
         }
 
+    def _round_sizes(self, n: int) -> list[int]:
+        """Batch sizes of the rounds a level of n stems runs in."""
+        batch = n if self.stem_batch == 0 else self.stem_batch
+        return [min(batch, n - done) for done in range(0, n, max(1, batch))]
+
+    def _multilevel_fusable(self) -> bool:
+        """Structural validity of the segmented scan: the placements of every
+        level must be value-independent (the predictive policy), levels must
+        deepen strictly (rows enter in segment order), all at depth >= 1."""
+        idx = [int(i) for i in self.list_idx_injection]
+        return (
+            self._predictive()
+            and len(idx) >= 2
+            and all(i >= 1 for i in idx)
+            and all(b > a for a, b in zip(idx, idx[1:]))
+            and all(int(n) >= 1 for n in self.list_nmb_stems)
+        )
+
+    def _seg_plan(self, recycled1: bool) -> tuple[list[tuple[int, int]], int]:
+        """Segment table ((start_step, batch), ...) of the current plan and
+        its total useful row-step count."""
+        N = self.num_inference_steps
+        B = 1 if recycled1 else 2
+        segs = [(0, B)]
+        for idx, k in zip(self.list_idx_injection, self.list_nmb_stems):
+            B += int(k)
+            segs.append((int(idx), B))
+        ends = [i0 for i0, _ in segs[1:]] + [N]
+        return segs, sum((i1 - i0) * Bs for (i0, Bs), i1 in zip(segs, ends))
+
     def planner_calibrated(self, recycled1: bool = False) -> bool:
         """Whether predict_transition_time's active path has measured inputs
-        (a warm fused run and its output tail; or observed per-batch step
-        costs for every round size plus the sync round trip) instead of
-        placeholder fallbacks."""
-        if self.predict_transition_time(recycled1=recycled1)["path"] == "fused":
+        (a warm fused or fused-multi run and the output tail; or observed
+        per-batch step costs for every round size plus the sync round trip)
+        instead of placeholder fallbacks."""
+        path = self.predict_transition_time(recycled1=recycled1)["path"]
+        if path == "fused":
             return self.dt_unet_step_fused is not None and self._dt_fused_output is not None
-        sizes = {1 if recycled1 else 2} | {int(n) for n in self.list_nmb_stems if int(n) > 0}
+        if path == "fused-multi":
+            return self.dt_unet_step_fused_multi is not None and self._dt_fused_output is not None
+        sizes = {1 if recycled1 else 2}
+        for n in self.list_nmb_stems:
+            sizes.update(self._round_sizes(int(n)))
         return self.dt_sync is not None and all(b in self._dt_step_by_batch for b in sizes)
 
     def _fused_predicted_faster(self, recycled1: bool) -> bool:
         """Auto-gate arbitration (LB_FUSED unset): an uncalibrated engine
-        (no sync measurement or no warm fused run yet) takes the fused path;
-        a calibrated one takes the path the cost model prices lower."""
-        if self.dt_sync is None or self.dt_unet_step_fused is None:
+        (no sync measurement, or no warm run of the candidate fused path
+        yet) takes the fused path; a calibrated one takes the path the cost
+        model prices lower."""
+        cal = self.dt_unet_step_fused if len(self.list_idx_injection) == 1 else self.dt_unet_step_fused_multi
+        if self.dt_sync is None or cal is None:
             return True
         return self.predict_transition_time(recycled1=recycled1)["path"] != "per-level"
 
@@ -308,6 +505,7 @@ class BlendingEngine:
             # step and output costs are resolution-specific: drop them
             self._dt_step_by_batch.clear()
             self.dt_unet_step_fused = None
+            self.dt_unet_step_fused_multi = None
             self._dt_fused_output = None
             self._dt_unet_step_measured = False
 
@@ -359,11 +557,31 @@ class BlendingEngine:
             self.set_branching(*self._branching_args)
 
     def set_branching(self, depth_strength=None, t_compute_max_allowed=None, nmb_max_branches=None):
-        if t_compute_max_allowed is not None:
+        """Turbo: the one-level plan. Base: the time-based plan (default
+        depth 0.5 and a 20 s budget; a budget and a branch count exclude
+        each other)."""
+        if self.dh.is_sdxl_turbo and t_compute_max_allowed is not None:
             raise ValueError("time-based branching not supported for SDXL Turbo")
         self._branching_args = (depth_strength, t_compute_max_allowed, nmb_max_branches)
-        self.list_idx_injection, self.list_nmb_stems = turbo_branching_plan(
-            self.num_inference_steps, depth_strength, nmb_max_branches
+        if self.dh.is_sdxl_turbo:
+            self.list_idx_injection, self.list_nmb_stems = turbo_branching_plan(
+                self.num_inference_steps, depth_strength, nmb_max_branches
+            )
+            return
+        if depth_strength is None:
+            depth_strength = 0.5
+        if t_compute_max_allowed is None and nmb_max_branches is None:
+            t_compute_max_allowed = 20
+        elif t_compute_max_allowed is not None and nmb_max_branches is not None:
+            raise ValueError("Either specify t_compute_max_allowed or nmb_max_branches")
+        self.list_idx_injection, self.list_nmb_stems = self.get_time_based_branching(
+            depth_strength, t_compute_max_allowed, nmb_max_branches
+        )
+
+    def get_time_based_branching(self, depth_strength, t_compute_max_allowed=None, nmb_max_branches=None):
+        return time_based_branching_plan(
+            self.num_inference_steps, depth_strength, self.dt_unet_step, self.dt_vae,
+            t_compute_max_allowed, nmb_max_branches,
         )
 
     def get_noise(self, seed: int) -> torch.Tensor:
@@ -449,20 +667,25 @@ class BlendingEngine:
         ok1 = bool(recycle_img1) and self.tree_latents[0] is not None and len(self.tree_latents[0]) == N
         ok2 = bool(recycle_img2) and self.tree_latents[-1] is not None and len(self.tree_latents[-1]) == N
 
-        # the JAX gate also needs stem_batch == 0 and no mesh: the port runs
-        # each level as one batch on one device, so both always hold
+        # the JAX gate also needs no device mesh: the port runs on one device
         structural_ok = (
             not ok2
+            and self.stem_batch == 0
             and len(self.list_idx_injection) == 1
             and int(self.list_nmb_stems[0]) >= 1
             and int(self.list_idx_injection[0]) >= 1
         )
         gate = os.environ.get("LB_FUSED", "auto")
-        if structural_ok and gate != "0" and (gate == "1" or self._fused_predicted_faster(ok1)):
+        take_fused = gate == "1" or (gate != "0" and self._fused_predicted_faster(ok1))
+        if structural_ok and take_fused:
             self._run_transition_fused(recycled1=ok1)
             return
-        # a multi-level plan takes the per-level path: the segmented
-        # multi-level fused scan is not ported
+        if not ok2 and self._multilevel_fusable() and take_fused:
+            # the whole multi-level plan as ONE segmented call: valid under
+            # the predictive policy only (placements across all levels are
+            # then value-independent)
+            self._run_transition_fused_multi(recycled1=ok1)
+            return
 
         if ok1 and ok2:
             list_latents1, list_latents2 = self.tree_latents[0], self.tree_latents[-1]
@@ -483,17 +706,66 @@ class BlendingEngine:
         self.tree_final_imgs = [_PendingImage(edge_u8, 0), _PendingImage(edge_u8, 1)]
         self._imgs_dev = [edge_pm1[0], edge_pm1[1]]
         self.tree_idx_injection = [0, 0]
-        self.tree_similarities = self._batched_similarities()
+        # predictive policy: no device value is read between levels, so the
+        # rounds chain on the device and the host syncs once, at the end
+        self.tree_similarities = [1.0] if self._predictive() else self._batched_similarities()
+        self._run_levels(self.list_idx_injection, self.list_nmb_stems)
 
-        # each level's stems run as one batched round; the last round's
-        # similarities are report-only, so they are deferred
-        n_levels = len(self.list_idx_injection)
-        for s_idx, (nmb_stems, idx_injection) in enumerate(zip(self.list_nmb_stems, self.list_idx_injection)):
+    def _run_levels(self, list_idx_injection, list_nmb_stems, extended: bool = False) -> None:
+        """Each level's stems in rounds of stem_batch (0: the whole level).
+        The last round's similarities are report-only, so they are deferred;
+        a predictive round syncs only if it is the last."""
+        predictive = self._predictive()
+        n_levels = len(list_idx_injection)
+        for s_idx, (idx_injection, nmb_stems) in enumerate(zip(list_idx_injection, list_nmb_stems)):
+            idx_injection, nmb_stems = int(idx_injection), int(nmb_stems)
             t_lvl = time.time()
-            self._run_stem_round(int(nmb_stems), int(idx_injection), defer_sims=s_idx == n_levels - 1)
-            self.last_report.levels.append(
-                {"idx_injection": int(idx_injection), "stems": int(nmb_stems), "wall_s": round(time.time() - t_lvl, 3)}
+            done = 0
+            for k in self._round_sizes(nmb_stems):
+                done += k
+                is_last = s_idx == n_levels - 1 and done >= nmb_stems
+                self._run_stem_round(k, idx_injection, defer_sims=is_last, predicted=predictive,
+                                     sync=(not predictive) or is_last)
+            level = {"idx_injection": idx_injection, "stems": nmb_stems}
+            if extended:
+                level["extended"] = True
+            level["wall_s"] = round(time.time() - t_lvl, 3)
+            self.last_report.levels.append(level)
+
+    def extend_transition(self, list_idx_injection, list_nmb_stems) -> list:
+        """Deepen the current tree with more stem levels; no existing
+        trajectory is recomputed. Valid after run_transition; each new stem
+        costs only its N − idx_injection steps. Placement follows the
+        placement policy against the live gap similarities, so run([a]) +
+        extend([b]) gives the tree of run([a, b]) for deterministic solvers.
+        Returns the extended keyframe list, like run_transition."""
+        if not (len(self.tree_latents) >= 2 and len(self.tree_fracts) == len(self.tree_latents)
+                and all(lat is not None for lat in self.tree_latents)):
+            raise RuntimeError("extend_transition needs an existing tree: run_transition() first")
+        N = self.num_inference_steps
+        list_idx_injection = [int(i) for i in list_idx_injection]
+        list_nmb_stems = [int(n) for n in list_nmb_stems]
+        if len(list_idx_injection) != len(list_nmb_stems):
+            raise ValueError("list_idx_injection and list_nmb_stems differ in length")
+        for idx in list_idx_injection:
+            if not 1 <= idx < N:
+                raise ValueError(f"idx_injection {idx} outside [1, {N - 1}]")
+        self.timer = PhaseTimer()
+        self.last_report = TransitionReport(num_steps=N)
+        self._t_run0 = time.time()
+        # a previous run's deferred similarity pass lands before placement reads it
+        if self._sims_pending is not None:
+            self.tree_similarities = np.asarray(self._sims_pending, np.float64).tolist()
+            self._sims_pending = None
+        if len(self.tree_similarities) != len(self.tree_fracts) - 1:
+            self.tree_similarities = (
+                [1.0] * (len(self.tree_fracts) - 1) if self._predictive() else self._batched_similarities()
             )
+        with torch.no_grad():
+            self._run_levels(list_idx_injection, list_nmb_stems, extended=True)
+        self._resolve_keyframes()
+        self._finalize_report()
+        return self.tree_final_imgs
 
     def _run_transition_fused(self, recycled1: bool = False):
         """The whole single-level transition as ONE denoise call.
@@ -617,6 +889,178 @@ class BlendingEngine:
             self._dt_fused_output = self._observe(self._dt_fused_output, time.time() - t_out0)
         self.last_report.levels.append({"idx_injection": idx_injection, "stems": k, "fused": True,
                                         "recycled": recycled1})
+
+    def _plan_multilevel(self, recycled1: bool):
+        """The predictive per-level placement loop over ALL levels, simulated
+        on the virgin two-edge tree: valid because predictive placements
+        read no measured value (gap similarities halve by prediction, and
+        parents are found by the bracketing, strictly-shallower walk against
+        the tree each level sees).
+
+        Returns (stems, sims): stems[i] describes batch row n_edges + i as
+        (fract, (p1_row, p2_row), parent_fract, level_idx, win1), rows in
+        level order then placement order (the scan's batch order); sims is
+        the final predicted gap-similarity list in tree order."""
+        n_edges = 1 if recycled1 else 2
+        fracts = [0.0, 1.0]
+        sims = [1.0]
+        idxinj = [0, 0]
+        # batch row of each tree position; a recycled edge 1 has no row (a
+        # dummy 0: win_mask substitutes the window for its state)
+        rowmap = [0, n_edges - 1]
+        win1 = [recycled1, False]
+        stems = []
+        next_row = n_edges
+        for idx_injection, k in zip(self.list_idx_injection, self.list_nmb_stems):
+            idx_injection, k = int(idx_injection), int(k)
+            lf, ls = list(fracts), list(sims)
+            placed = []
+            for _ in range(k):
+                g = int(np.argmax(ls))
+                fm = (lf[g] + lf[g + 1]) / 2.0
+                b1, b2 = get_closest_idx(fm, fracts)
+                while idxinj[b1] >= idx_injection:
+                    b1 -= 1
+                while idxinj[b2] >= idx_injection:
+                    b2 += 1
+                placed.append((fm, b1, b2))
+                ls[g : g + 1] = [ls[g] * 0.5, ls[g] * 0.5]
+                lf.insert(g + 1, fm)
+            rows_of_level = []
+            for fm, b1, b2 in placed:
+                pf = (fm - fracts[b1]) / (fracts[b2] - fracts[b1])
+                stems.append((fm, (rowmap[b1], rowmap[b2]), pf, idx_injection, win1[b1]))
+                rows_of_level.append((fm, next_row))
+                next_row += 1
+            # the level joins the simulated tree in fract order
+            for fm, row in sorted(rows_of_level):
+                pos = get_closest_idx(fm, fracts)[0] + 1
+                fracts.insert(pos, fm)
+                idxinj.insert(pos, idx_injection)
+                rowmap.insert(pos, row)
+                win1.insert(pos, False)
+            sims = ls
+        return stems, sims
+
+    def _run_transition_fused_multi(self, recycled1: bool = False):
+        """A whole multi-level transition as ONE denoise_scan_tree_seg call:
+        segments of steps whose batch grows as each level's stems enter at
+        their injection step, pinned to the live parental mix by crossfeed
+        coefficient 1.0; deeper stems parent on shallower stem rows of the
+        same batch. Runs exactly the per-level path's useful row-steps, each
+        in the largest batch alive at its depth, with no per-level
+        dispatches. Per-stem results equal the predictive per-level path's
+        for deterministic solvers.
+
+        recycled1 and branch1 crossfeed ride along as in
+        _run_transition_fused (a per-step window and edge 2's mix
+        schedule); then ONE decode → convert → host copy pipeline in fract
+        order, and the similarity pass deferred."""
+        N = self.num_inference_steps
+        n_edges = 1 if recycled1 else 2
+        e2 = n_edges - 1
+        win_list = self.tree_latents[0] if recycled1 else None
+        self.tree_fracts = [0.0, 1.0]
+        self.tree_idx_injection = [0, 0]
+        self.tree_similarities = [1.0]
+        stems, plan_sims = self._plan_multilevel(recycled1)
+        k_total = len(stems)
+        B = n_edges + k_total
+        segs, row_steps = self._seg_plan(recycled1)
+        fracts = [f for f, _, _, _, _ in stems]
+
+        noise2 = self.get_noise(self.seed2)
+        if recycled1:
+            lat0 = noise2  # entering stem rows are initialised in the scan
+            cond_fracts = [1.0] + fracts
+            win_stack = torch.cat(list(win_list), dim=0)  # [N,h,w,4]
+            # step i mixes toward trajectory entry i-1; entry 0 is never
+            # read (coefficient 0 at step 0)
+            win_steps = torch.cat([win_stack[:1], win_stack[:-1]], dim=0)
+            win_mask = np.zeros((B,), bool)
+            win_mask[e2] = self.branch1_crossfeed_power > 0.0
+            win_mask[n_edges:] = [w1 for _, _, _, _, w1 in stems]
+        else:
+            lat0 = torch.cat([self.get_noise(self.seed1), noise2], dim=0)
+            cond_fracts = [0.0, 1.0] + fracts
+            win_steps = win_mask = None
+        cond = self._stack_conditionings(cond_fracts)
+        guidance = torch.tensor([self._guidance_at(f) for f in cond_fracts], dtype=torch.float32)
+
+        # edges parent on themselves; edge 2's branch1-crossfeed target is
+        # edge 1 at fract 0
+        parent_idx = np.zeros((B, 2), np.int64)
+        parent_fract = np.zeros((B,), np.float32)
+        coeffs = np.zeros((N, B), np.float32)
+        pins = np.zeros((B,), np.int64)
+        base_by_level: dict[int, np.ndarray] = {}
+        for i, (_, prows, pf, level, _) in enumerate(stems):
+            r = n_edges + i
+            parent_idx[r] = prows
+            parent_fract[r] = pf
+            if level not in base_by_level:
+                base_by_level[level] = np.asarray(parental_crossfeed_coeffs(
+                    N, level, self.parental_crossfeed_power, self.parental_crossfeed_range,
+                    self.parental_crossfeed_decay,
+                ), np.float32)
+            coeffs[:, r] = base_by_level[level]
+            coeffs[:level, r] = 0.0
+            # the pin: fraction 1.0 starts the stem exactly from the parental
+            # mix state level-1
+            coeffs[level, r] = 1.0
+            pins[r] = level
+        if self.branch1_crossfeed_power > 0.0:
+            coeffs[:, e2] = branch1_crossfeed_coeffs(
+                N, self.branch1_crossfeed_power, self.branch1_crossfeed_range, self.branch1_crossfeed_decay,
+            )
+
+        with self.timer.phase("denoise"):
+            t0 = time.time()
+            trajs = self.dh.run_tree_seg_batched(
+                cond, lat0, parent_idx, parent_fract, coeffs, guidance, segs,
+                win_steps=win_steps, win_mask=win_mask, pin_steps=pins,
+            )
+            _sync(trajs[-1])
+            if self.dh.last_run_was_warm:
+                self.dt_unet_step_fused_multi = self._observe(
+                    self.dt_unet_step_fused_multi, (time.time() - t0) / row_steps
+                )
+
+        # ONE decode pipeline for edges and stems; a recycled edge 1's final
+        # latent joins it so its keyframe is rebuilt
+        t_out0 = time.time()
+        sorted_stems = sorted(range(k_total), key=lambda i: fracts[i])
+        finals = trajs[-1][-1] if not recycled1 else torch.cat([win_stack[-1:], trajs[-1][-1]], dim=0)
+        off = 1 if recycled1 else 0
+        order_rows = [0] + [n_edges + off + i for i in sorted_stems] + [e2 + off]
+        with self.timer.phase("vae_decode"):
+            pm1_of, chunk_of = self._decode_fetch_chunks(finals, order_rows)
+
+        ends = [i0 for i0, _ in segs[1:]] + [N]
+
+        def row_entries(r: int) -> list:
+            """Per-step [1,h,w,4] states of batch row r from its entry step
+            on (global step i of segment s is trajs[s][i - i0_s])."""
+            return [traj[j, r : r + 1] for (i0, Bs), i1, traj in zip(segs, ends, trajs) if Bs > r
+                    for j in range(i1 - i0)]
+
+        self.tree_latents = (
+            [list(win_list) if recycled1 else row_entries(0)]
+            + [[None] * stems[i][3] + row_entries(n_edges + i) for i in sorted_stems]
+            + [row_entries(e2)]
+        )
+        self.tree_fracts = [0.0] + [fracts[i] for i in sorted_stems] + [1.0]
+        self.tree_idx_injection = [0] + [stems[i][3] for i in sorted_stems] + [0]
+        self.tree_similarities = list(plan_sims)
+        self.tree_final_imgs = [_PendingImage(*chunk_of[row]) for row in order_rows]
+        self._imgs_dev = [pm1_of[row] for row in order_rows]
+        with self.timer.phase("similarity"):
+            self._sims_pending = _fetch(self._dispatch_similarities())
+        if self.dh.last_run_was_warm:
+            self._dt_fused_output = self._observe(self._dt_fused_output, time.time() - t_out0)
+        for idx_injection, k in zip(self.list_idx_injection, self.list_nmb_stems):
+            self.last_report.levels.append({"idx_injection": int(idx_injection), "stems": int(k), "fused": True,
+                                            "seg": True, "recycled": recycled1})
 
     def _decode_fetch_chunks(self, finals: torch.Tensor, order_rows: list[int]):
         """Decode → convert → host copy in chunks of LB_FETCH_CHUNK rows, in
@@ -763,13 +1207,19 @@ class BlendingEngine:
         zero = torch.zeros_like(entries[-1][0])
         return torch.stack([zero if e is None else e[0] for e in entries[: self.num_inference_steps]], dim=0)
 
-    def _run_stem_round(self, k: int, idx_injection: int, defer_sims: bool = False):
+    def _run_stem_round(self, k: int, idx_injection: int, defer_sims: bool = False, predicted: bool = False,
+                        sync: bool = True):
         """Plan, compute and insert k sibling stems as one batched denoise +
         decode + similarity round. With defer_sims the gap-similarity pass
         is dispatched but left in flight (_sims_pending): only valid for the
-        final round, whose similarities no placement consumes."""
+        final round, whose similarities no placement consumes.
+
+        predicted (the predictive policy): the gap similarities become the
+        planner's predicted values instead of a measurement; with
+        sync=False the round only dispatches (no host wait, no step-cost
+        sample: its wall would not be its own)."""
         N = self.num_inference_steps
-        placements, _ = self._plan_placements(k, idx_injection)
+        placements, plan_sims = self._plan_placements(k, idx_injection)
         p1 = torch.stack([self._branch_traj_array(b1) for _, b1, _ in placements], dim=1)
         p2 = torch.stack([self._branch_traj_array(b2) for _, _, b2 in placements], dim=1)
         fract_parental = torch.tensor(
@@ -789,12 +1239,15 @@ class BlendingEngine:
                 cond, mix_traj[idx_injection - 1], idx_start=idx_injection, mix_traj=mix_traj,
                 mixing_coeffs=coeffs, guidance_scale=guidance,
             )  # [N - idx_injection, k, h, w, 4]
-            _sync(traj)
-            if self.dh.last_run_was_warm:
-                # observed per-(row,step) cost at THIS batch size
-                self._dt_step_by_batch[k] = self._observe(
-                    self._dt_step_by_batch.get(k), (time.time() - t0) / ((N - idx_injection) * k)
-                )
+            if sync:
+                _sync(traj)
+                if self.dh.last_run_was_warm and not predicted:
+                    # observed per-(row,step) cost at THIS batch size; under
+                    # the predictive policy the final sync drains every
+                    # chained round, so its wall is not this round's cost
+                    self._dt_step_by_batch[k] = self._observe(
+                        self._dt_step_by_batch.get(k), (time.time() - t0) / ((N - idx_injection) * k)
+                    )
         order = sorted(range(k), key=lambda i: placements[i][0])
         with self.timer.phase("vae_decode"):
             imgs_pm1 = self.dh.decode_to_pm1_batched(traj[-1])
@@ -818,9 +1271,12 @@ class BlendingEngine:
                 self._imgs_dev.insert(idx_insert, imgs_pm1[i])
                 self.tree_fracts.insert(idx_insert, fract_mixing)
                 self.tree_idx_injection.insert(idx_insert, idx_injection)
+            if predicted:
+                # the planner's post-insert predicted gap values, wholesale
+                self.tree_similarities = list(plan_sims)
             if defer_sims:
                 self._sims_pending = _fetch(self._dispatch_similarities())
-            else:
+            elif not predicted:
                 self.tree_similarities = self._batched_similarities()
 
     # ----------------------------------------------------- conditioning mix

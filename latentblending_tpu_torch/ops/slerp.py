@@ -9,8 +9,9 @@ csrc/slerp.cu, one body with two entry points:
   once per denoise step (runtime/denoise.py::denoise_scan) and the parental
   mix of a stem round over all (step, stem) rows (engine/blending.py).
 - `slerp_tree_step(latents, p1, p2, parent_fract, mix_coeff, window,
-  win_mask)`: one step of the fused tree scan (denoise_scan_tree) in one
-  launch — the live parental mix of two rows of the batch (parent 1 from
+  win_mask)`: one step of the fused tree scans (denoise_scan_tree, and
+  denoise_scan_tree_seg over the live rows) in one launch — the live
+  parental mix of two rows of the batch (parent 1 from
   the window where win_mask is set), rounded to the storage type, then the
   crossfeed slerp toward it; the kernel gathers the parent rows itself.
 
@@ -25,6 +26,7 @@ plain version; nothing falls back from one to the other.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -87,6 +89,19 @@ def _check_index(key: str, idx: torch.Tensor, rows: int) -> None:
     if lo < 0 or hi >= rows:
         raise ValueError(f"slerp_tree_step: {key} holds rows {lo}..{hi}, outside [0, {rows})")
     _INDEX_CHECKED[idx] = (idx._version, rows)
+
+
+def host_checked_index(idx, rows: int, device) -> torch.Tensor:
+    """A parent-index tensor for slerp_tree_step on `device`, from host
+    indices whose range is checked here, on the host: slerp_tree_step then
+    makes no device→host read for it."""
+    arr = np.ascontiguousarray(idx, np.int64)
+    if arr.shape != (rows,) or (rows and (arr.min() < 0 or arr.max() >= rows)):
+        raise ValueError(f"slerp_tree_step: indices must be [{rows}] in [0, {rows}), got {arr.tolist()}")
+    t = torch.from_numpy(arr).to(device)
+    if t.is_cuda:
+        _INDEX_CHECKED[t] = (t._version, rows)
+    return t
 
 
 def _launch(name: str, *args) -> None:

@@ -13,8 +13,11 @@ cache:
   all N steps for the edges and every stem of a level, whose crossfeed
   targets are live parental slerps of other rows of the same batch (one
   launch of K1's tree step per step: the parental mix and the crossfeed).
+- `denoise_scan_tree_seg` (the fused multi-level transition): the same
+  step over segments of steps whose batch grows at each boundary, rows
+  ordered by injection step, so the live rows are a prefix of the batch
+  and only useful (row, step) work runs.
 
-The segmented multi-level scan (`denoise_scan_tree_seg`) is not ported.
 Latents keep the JAX package's layout, [B, h, w, 4]; the UNet callable
 takes and returns that layout too (the holder permutes to NCHW inside).
 """
@@ -32,7 +35,7 @@ from latentblending_tpu_torch.ops.scheduler import (
     euler_step,
     scale_model_input,
 )
-from latentblending_tpu_torch.ops.slerp import slerp_rows, slerp_tree_step
+from latentblending_tpu_torch.ops.slerp import host_checked_index, slerp_rows, slerp_tree_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +49,8 @@ class DenoisePlan:
     guidance_rescale: float = 0.0
     # "euler" | "euler_ancestral" | "dpmpp_2m"
     sched: str = "euler"
+    # ((start_step, batch), ...) of the segmented tree scan, else ()
+    segs: tuple = ()
 
     @property
     def exec_steps(self) -> int:
@@ -232,6 +237,106 @@ def denoise_scan_tree(
         )
         traj.append(latents)
     return torch.stack(traj, dim=0)
+
+
+def _cond_prefix(cond: Conditioning, rows: int) -> Conditioning:
+    """The conditioning of the first `rows` batch rows."""
+    fields = (getattr(cond, f.name) for f in dataclasses.fields(cond))
+    return Conditioning(*(None if x is None else x[:rows] for x in fields))
+
+
+def denoise_scan_tree_seg(
+    unet_apply: Callable,
+    plan: DenoisePlan,  # plan.segs = ((start_step, batch), ...)
+    latents_start: torch.Tensor,  # [B0, h, w, 4] — the rows live from step 0 (edges)
+    cond: Conditioning,  # [B_total, ...]
+    parent_idx: np.ndarray,  # [B_total, 2] int, on the host — in-batch parent rows
+    parent_fract: torch.Tensor,  # [B_total] f32 — parental mix fraction per row
+    mix_coeffs: torch.Tensor,  # [N, B_total] crossfeed fraction per step & row
+    sigmas: np.ndarray,  # [N+1]
+    timesteps: np.ndarray,  # [N]
+    guidance_scale: torch.Tensor,  # [B_total]
+    noise=None,  # N ancestral draws, step i of shape [B_s, h, w, 4] (euler_ancestral)
+    win_steps: Optional[torch.Tensor] = None,  # [N, h, w, 4] recycled-edge entering-states
+    win_mask=None,  # [B_total] bool — rows whose parent-1 is the window
+    pin_steps=None,  # [B_total] int — step each row is pinned at (0 = edge)
+) -> tuple:
+    """The segmented multi-level tree loop: a whole multi-level branching
+    plan in one call. Segment s runs steps [i0_s, i0_{s+1}) over the live
+    rows [0, B_s); rows are ordered by injection step, so the batch only
+    grows. Each step is one K1 tree step (live parental mix and crossfeed)
+    and one UNet eval over the live rows.
+
+    A row entering at segment s starts from its parent-1 state (any finite
+    value would do) and is pinned by its crossfeed coefficient 1.0 at its
+    first step: the slerp replaces its state with the live parental mix,
+    which equals the per-level path's latents_start = mix_traj[i0-1].
+    Parents are always in earlier segments, so their rows are live.
+
+    Returns a tuple of per-segment trajectories [len_s, B_s, h, w, 4]; the
+    state of row r after global step i of segment s is trajs[s][i - i0_s, r].
+    """
+    segs = plan.segs
+    if not segs or plan.idx_start != 0:
+        raise ValueError("denoise_scan_tree_seg needs plan.segs and idx_start 0")
+    N = plan.num_steps
+    dev = latents_start.device
+    if plan.sched == "euler_ancestral" and noise is None:
+        raise ValueError("plan.sched='euler_ancestral' needs `noise` (the call's per-step draws)")
+    pidx = np.asarray(parent_idx, np.int64)
+    B_total = pidx.shape[0]
+    tables = _step_tables(plan, sigmas, timesteps)
+    sig_w, sigp_w, sign_w, t_w = (torch.as_tensor(a, device=dev) for a in tables[:4])
+    pins = np.zeros((B_total,), np.int64) if pin_steps is None else np.asarray(pin_steps, np.int64)
+    # per-(step, row) validity of the dpmpp_2m history: after the row's pin
+    use2_mat = torch.as_tensor(tables[4][:, None] & (np.arange(N)[:, None] > pins[None, :]), device=dev)
+    mix_coeffs = mix_coeffs.to(device=dev, dtype=torch.float32)
+    parent_fract = parent_fract.to(device=dev, dtype=torch.float32)
+    guidance_scale = guidance_scale.to(device=dev, dtype=torch.float32)
+    wmask = None
+    if win_steps is not None:
+        win_steps = win_steps.to(device=dev, dtype=latents_start.dtype).contiguous()
+        wmask = torch.as_tensor(np.asarray(win_mask, bool), device=dev)
+
+    # every segment's index tensors, copied to the device before the loop
+    # (a blocking host→device copy synchronizes the stream); the parent
+    # indices are range checked on the host, so the K1 wrapper reads nothing
+    # back. Entering rows start from parent 1's current state, a finite
+    # placeholder: the coefficient-1.0 slerp at their first step is the pin.
+    starts = [latents_start.shape[0]] + [Bs for _, Bs in segs[:-1]]
+    if any(Bs < Bprev for (_, Bs), Bprev in zip(segs, starts)):
+        raise ValueError(f"segment batches must not shrink: {segs}")
+    enter_idx = [torch.from_numpy(np.clip(pidx[Bprev:Bs, 0], 0, Bprev - 1)).to(dev)
+                 for (_, Bs), Bprev in zip(segs, starts)]
+    parents = [(host_checked_index(pidx[:Bs, 0], Bs, dev), host_checked_index(pidx[:Bs, 1], Bs, dev))
+               for _, Bs in segs]
+
+    latents = latents_start
+    old_denoised = torch.zeros(latents.shape, dtype=torch.float32, device=dev)
+    trajs = []
+    for s, (i0, Bs) in enumerate(segs):
+        i1 = segs[s + 1][0] if s + 1 < len(segs) else N
+        if Bs > latents.shape[0]:
+            enter = latents[enter_idx[s]]
+            latents = torch.cat([latents, enter], dim=0)
+            old_denoised = torch.cat([old_denoised, old_denoised.new_zeros(enter.shape)], dim=0)
+        # the segment's operands, sliced once
+        p1, p2 = parents[s]
+        pf, g = parent_fract[:Bs].contiguous(), guidance_scale[:Bs]
+        wm = None if wmask is None else wmask[:Bs].contiguous()
+        mc = mix_coeffs[i0:i1, :Bs].contiguous()
+        use2 = use2_mat[i0:i1, :Bs].reshape(i1 - i0, Bs, 1, 1, 1)
+        pe, pool, tids = _fold_cfg(plan, _cond_prefix(cond, Bs))
+        ys = []
+        for j, i in enumerate(range(i0, i1)):
+            latents = slerp_tree_step(latents, p1, p2, pf, mc[j], None if win_steps is None else win_steps[i], wm)
+            latents, old_denoised = _eps_and_step(
+                plan, unet_apply, pe, pool, tids, g, latents, old_denoised,
+                sig_w[i], sigp_w[i], sign_w[i], t_w[i], None if noise is None else noise[i], use2[j],
+            )
+            ys.append(latents)
+        trajs.append(torch.stack(ys, dim=0) if ys else latents.new_empty((0,) + tuple(latents.shape)))
+    return tuple(trajs)
 
 
 def build_mix_inputs(

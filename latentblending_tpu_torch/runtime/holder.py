@@ -14,6 +14,7 @@ jax.random draws, so tests hand both packages the same draws.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -39,6 +40,7 @@ from latentblending_tpu_torch.runtime.denoise import (
     build_mix_inputs,
     denoise_scan,
     denoise_scan_tree,
+    denoise_scan_tree_seg,
 )
 
 VAE_SCALE_FACTOR = 8
@@ -242,6 +244,14 @@ class SDXLHolder:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return torch.randn((exec_steps,) + tuple(shape), generator=gen, device=self.device, dtype=torch.float32)
 
+    def ancestral_noise_steps(self, shapes) -> list[torch.Tensor]:
+        """Per-step euler_ancestral draws of the next denoise call whose
+        batch changes between steps: step i draws shapes[i] (the live rows of
+        the segmented scan), from a generator seeded as in ancestral_noise."""
+        seed = (self.noise_seed_base * 1_000_003 + self._noise_call) % (2**63)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return [torch.randn(tuple(s), generator=gen, device=self.device, dtype=torch.float32) for s in shapes]
+
     def default_time_ids(self, batch: int) -> torch.Tensor:
         """SDXL micro-conditioning (orig_h, orig_w, crop_top, crop_left,
         target_h, target_w) at the real output size."""
@@ -428,6 +438,55 @@ class SDXLHolder:
             win_mask=win_mask, pin_steps=pin_steps,
         )
 
+    @torch.no_grad()
+    def run_tree_seg_batched(
+        self,
+        cond: Conditioning,
+        latents_start: torch.Tensor,  # [B0,h,w,4] — the edge rows only
+        parent_idx,  # [B,2] int — in-batch parent rows (self for edges)
+        parent_fract,  # [B] float — parental slerp fraction per row
+        coeffs,  # [N,B] float — crossfeed coefficient per (step,row)
+        guidance_scale,  # [B]
+        segs,  # ((start_step, batch), ...) — rows ordered by injection step
+        win_steps=None,  # [N,h,w,4] recycled-edge entering-states, or None
+        win_mask=None,  # [B] bool — rows whose parent-1 is the window
+        pin_steps=None,  # [B] int — injection step per row (0 = edge)
+    ) -> tuple:
+        """ONE segmented loop computing a whole multi-level plan
+        (denoise_scan_tree_seg): each row runs only its useful steps, in the
+        largest batch alive at its depth. Returns the per-segment
+        trajectories. The euler_ancestral draws of the call come from one
+        ancestral_noise_steps call, step i of the live batch's shape."""
+        parent_idx = np.asarray(parent_idx, np.int64)
+        B = parent_idx.shape[0]
+        N = self.num_inference_steps
+        segs = tuple((int(i), int(b)) for i, b in segs)
+        if segs[0][0] != 0 or segs[-1][1] != B:
+            raise ValueError(f"segments {segs} must start at step 0 and end with the whole batch {B}")
+        use_cfg = self.do_classifier_free_guidance
+        plan = DenoisePlan(
+            num_steps=N, idx_start=0, batch=B, use_cfg=use_cfg,
+            guidance_rescale=float(self.guidance_rescale) if use_cfg else 0.0,
+            sched=self.schedule.config.scheduler_type, segs=segs,
+        )
+        latents_start = latents_start.to(self.dtype).contiguous()
+        noise = None
+        if plan.sched == "euler_ancestral":
+            live = [next(b for i0, b in reversed(segs) if i0 <= i) for i in range(N)]
+            noise = self.ancestral_noise_steps([(b,) + tuple(latents_start.shape[1:]) for b in live])
+        self._noise_call += 1
+        self._note_warm(("seg", win_steps is not None, plan, tuple(latents_start.shape)))
+        cw = np.asarray(coeffs, np.float32).copy()
+        cw[0, :] = 0.0  # step 0 has no predecessor state to mix toward
+        return denoise_scan_tree_seg(
+            self._unet_apply, plan, latents_start, cond, parent_idx,
+            torch.as_tensor(np.asarray(parent_fract, np.float32), device=self.device),
+            torch.from_numpy(cw).to(self.device), self.schedule.sigmas, self.schedule.timesteps,
+            torch.as_tensor(guidance_scale, dtype=torch.float32, device=self.device), noise=noise,
+            win_steps=None if win_steps is None else win_steps.to(self.dtype),
+            win_mask=win_mask, pin_steps=pin_steps,
+        )
+
     def run_diffusion(self, text_embeddings, latents_start: torch.Tensor, idx_start: int = 0,
                       list_latents_mixing=None, mixing_coeffs=0.0, guidance_rescale: float | None = None):
         """Single-branch API: the full-length latent list with None for
@@ -450,3 +509,25 @@ class SDXLHolder:
             guidance_rescale=guidance_rescale,
         )
         return [None] * idx_start + [traj[j] for j in range(N - idx_start)]
+
+    # ------------------------------------------------------------- timing
+
+    def benchmark_speed(self) -> tuple[float, float]:
+        """Wall of one UNet step (the last step of the schedule, one branch)
+        and of one VAE decode, each the second of two calls — the budget
+        planner's inputs under cost_model='reference'."""
+        te = self.get_text_embedding("test")
+        lat = self.get_noise(0)
+        idx = self.num_inference_steps - 1
+        self.run_diffusion(te, lat, idx_start=idx)
+        if lat.is_cuda:
+            torch.cuda.synchronize(lat.device)
+        t0 = time.time()
+        out = self.run_diffusion(te, lat, idx_start=idx)
+        if lat.is_cuda:
+            torch.cuda.synchronize(lat.device)
+        dt_unet_step = time.time() - t0
+        self.latent2image(out[-1])  # a host copy: it waits for the decode
+        t0 = time.time()
+        self.latent2image(out[-1])
+        return dt_unet_step, time.time() - t0

@@ -5,7 +5,7 @@ package's host modules.
   latentblending_tpu_torch, and chip_smoke.py, imports in a subprocess in
   which `import jax` fails.
 - The copied host modules equal their originals: configs, schedules,
-  utils and video/i420 byte for byte; the tokenizer (its `regex` import moved inside the
+  utils, video/i420 and engine/config (EngineConfig) byte for byte; the tokenizer (its `regex` import moved inside the
   BPE path) and profiling (without the jax.profiler hook) by behaviour.
 - chip_smoke.py refuses to run without a CUDA device, and from a
   directory that holds nothing else of the repo.
@@ -32,7 +32,8 @@ JPKG = Path(latentblending_tpu.__file__).parent
 TPKG = Path(latentblending_tpu_torch.__file__).parent
 
 
-@pytest.mark.parametrize("rel", ["models/configs.py", "ops/schedules.py", "utils.py", "video/i420.py"])
+@pytest.mark.parametrize("rel", ["models/configs.py", "ops/schedules.py", "utils.py", "video/i420.py",
+                                 "engine/config.py"])
 def test_copied_modules_are_identical(rel):
     assert (TPKG / rel).read_bytes() == (JPKG / rel).read_bytes()
 

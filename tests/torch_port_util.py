@@ -46,12 +46,21 @@ def jax_ancestral_draws(seed_base: int, call: int, exec_steps: int, shape) -> np
     return np.stack([np.asarray(jax.random.normal(k, tuple(shape), jax.numpy.float32)) for k in keys])
 
 
+def jax_ancestral_step_draws(seed_base: int, call: int, shapes) -> list[np.ndarray]:
+    """The JAX holder's euler_ancestral draws for a `call`-th denoise call
+    whose step i draws shapes[i] (the segmented scan's live batch)."""
+    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(int(seed_base)), call), len(shapes))
+    return [np.asarray(jax.random.normal(k, tuple(s), jax.numpy.float32)) for k, s in zip(keys, shapes)]
+
+
 def inject_jax_noise(tdh, jdh) -> None:
     """Make the port holder `tdh` draw the JAX holder's seeded noise and
     per-call euler_ancestral draws (torch RNG cannot reproduce jax.random)."""
     tdh.get_noise = lambda seed: to_torch(jdh.get_noise(seed))
     tdh.ancestral_noise = lambda steps, shape: torch.from_numpy(
         jax_ancestral_draws(tdh.noise_seed_base, tdh._noise_call, steps, shape))
+    tdh.ancestral_noise_steps = lambda shapes: [
+        torch.from_numpy(z) for z in jax_ancestral_step_draws(tdh.noise_seed_base, tdh._noise_call, shapes)]
 
 
 def tiny_unet_pair(pooled: int = 48, seed: int = 3):
