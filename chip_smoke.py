@@ -18,7 +18,11 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    slerp_tree_step at [12,64,64,4] with and without a window row, pins
    and a self-parent row, at [5|6|10,128,128,4] and on ragged rows; the K1
    wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
-   batch [20,4096,10,64]) plus a peaked case (q scaled by 4).
+   batch [20,4096,10,64]) plus a peaked case (q scaled by 4); K2 in f32 at
+   [12|2,1024,10,64] and [10,…] peaked, K3 in bf16 at [4|8|1,4096,1,512],
+   [1,16384,1,512] and [2,…] peaked; the K2/K3 wrapper's refusals (no
+   kernel for fp16, one head at d=512).
+   The f32 kernels are held to K3_REL_BOUND, the bf16 ones to K2_ABS_BOUND.
    For each case it prints the max abs/rel error, the kernel's device time
    (CUDA-graph replay of 10 launches, median of 10), the time of one call
    (CUDA events, median of 20), the plain version's and, for K2/K3,
@@ -44,7 +48,18 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
      measured warm walls of both paths;
    - one warm run of each path under torch.profiler: device time, busy
      share, kernel counts and the costliest kernels;
-6. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
+6. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
+   turbo UNet and CLIP and a bf16 copy of the VAE: set_keyframe1_image on
+   a 512² picture (one K3 bf16 launch, the encode) and
+   run_transition(recycle_img1=True), the fused path; set_keyframe2_image
+   on a 640×768 picture (resized on the card) and
+   run_transition(recycle_img2=True), the per-level path; each cold and
+   warm with exact launches; then the same 12 latents decoded by the f32
+   and the bf16 VAE at 512² and one latent at 1024² (LSB apart, ms per
+   keyframe);
+7. an f32 copy of the turbo UNet (f32_unet_phase): one fused
+   run_transition at 512², cold and warm, K2 f32 launched steps × 10 times;
+8. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
    benchmark_speed; negative prompt; set_branching(depth_strength=0.5,
    nmb_max_branches=10), the plan [15,18,21,24,27] x [3,2,1,1,1]; then the
    measured-policy per-level path, the predictive policy's segmented
@@ -56,7 +71,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    again in turns (b, c, a, a, c, b) with the card's clock and power, one
    profiled run of each predictive path, and the cost model's predictions
    beside the measured walls;
-7. prints one JSON line with every kernel's numbers, then the final line
+9. prints one JSON line with every kernel entry's numbers (K1 rows, K1
+   tree step, K2 bf16 and f32, K3 f32 and bf16), then the final line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the final line.
@@ -80,7 +96,10 @@ SEEDS = [420, 421]
 # K1 f32: the same with 1e-5 (f32 sums in another order);
 # K2: max abs error <= 2e-2 against the plain result in f32 from the same
 #     bf16 inputs (bf16 output rounding of values of order 1);
-# K3: max abs error <= 1e-4 * max |plain result| (f32 both sides).
+# K3: max abs error <= 1e-4 * max |plain result| (f32 both sides);
+# the variants in the other dtype take the bound of their dtype: K2 in f32
+# K3's (3xTF32 both), K3 in bf16 K2's (bf16 operands and P); both bounds
+# are emulated on the CPU in tests/test_torch_attention_numerics.py.
 K1_BOUND = {"bfloat16": 2e-2, "float32": 1e-5}
 K2_ABS_BOUND = 2e-2
 K3_REL_BOUND = 1e-4
@@ -356,9 +375,9 @@ def _sdpa(torch, q, k, v):
 
 
 def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
-    """flash_attention vs attention_reference on the same inputs: K2 (bf16)
-    against the plain result in f32 within K2_ABS_BOUND, K3 (f32) within
-    K3_REL_BOUND * max |plain|."""
+    """flash_attention vs attention_reference on the same inputs: a bf16
+    kernel (K2, K3 bf16) against the plain result in f32 within
+    K2_ABS_BOUND, an f32 one (K3, K2 f32) within K3_REL_BOUND * max |plain|."""
     from latentblending_tpu_torch.ops import attention
 
     q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
@@ -381,8 +400,8 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
         case["bound"] = K2_ABS_BOUND
         case["ok"] = case["finite"] and case["max_abs_err"] <= K2_ABS_BOUND
     else:
-        # K3 runs 3xTF32 on the tensor cores: three TF32 products for each
-        # f32 one, so its bound is 3 x flops over the TF32 peak; the bounds
+        # the f32 kernels run 3xTF32 on the tensor cores: three TF32 products
+        # for each f32 one, so the bound is 3 x flops over the TF32 peak; the bounds
         # of the f32 CUDA cores and of one TF32 pass are printed beside it
         case.update(_bound(nbytes, 3 * flops, "tf32"))
         case["flops"], case["bound_peak"] = flops, "3xtf32"
@@ -393,11 +412,40 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
     library, case["library_backend"] = _sdpa(torch, q, k, v)
     _timings(torch, case, lambda: attention.flash_attention(q, k, v),
              lambda: attention.attention_reference(q, k, v), library)
-    name = "K2 attention d64" if dtype == torch.bfloat16 else "K3 attention d512"
+    name = {(64, torch.bfloat16): "K2 attention d64", (64, torch.float32): "K2 attention d64 f32",
+            (512, torch.float32): "K3 attention d512", (512, torch.bfloat16): "K3 attention d512 bf16"}[(d, dtype)]
     print(name, json.dumps(case), flush=True)
     if not case["ok"]:
         raise AssertionError(f"{name} outside its bound: {case}")
     return case
+
+
+def _attention_refusals(torch, g) -> None:
+    """flash_attention raises on a CUDA tensor whose (head dim, dtype) has
+    no kernel (fp16 at d=64 and d=512) and on the d=512 kernels' one-head
+    rule; nothing falls back to the plain version."""
+    from latentblending_tpu_torch.ops import attention
+
+    def qkv(shape, dtype):
+        return [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
+
+    calls = [
+        (TypeError, lambda: attention.flash_attention(*qkv((2, 1024, 10, 64), torch.float16))),
+        (TypeError, lambda: attention.flash_attention(*qkv((1, 4096, 1, 512), torch.float16))),
+        (ValueError, lambda: attention.flash_attention(*qkv((1, 4096, 2, 512), torch.bfloat16))),
+        (ValueError, lambda: attention.flash_attention(*qkv((1, 1056, 10, 64), torch.float32))),
+    ]
+    before = _read_counts()
+    for i, (error, call) in enumerate(calls):
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"flash_attention refusal {i}: expected {error.__name__}")
+    if _read_counts() != before:
+        raise AssertionError("a refused flash_attention call launched a kernel")
+    print(f"K2/K3 wrapper: {len(calls)} refusals raised (no kernel for fp16; one head at d=512; "
+          f"L a multiple of 64)", flush=True)
 
 
 def kernel_phases(torch) -> dict:
@@ -450,6 +498,15 @@ def kernel_phases(torch) -> dict:
                 ((2, 4096, 1, 512), 4.0)]
     res["K2"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k2_cases]
     res["K3"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k3_cases]
+    # K2 in f32 (an f32 UNet: the fused batch 12, the edges' 2, the
+    # per-level stems' 10 peaked); K3 in bf16 (a bf16 VAE: fused and
+    # per-level decode chunks 4, 8 and 2, the encode's 1, the 1024² decode)
+    k2_f32_cases = [((12, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
+    k3_bf16_cases = [((4, 4096, 1, 512), 1.0), ((8, 4096, 1, 512), 1.0), ((1, 4096, 1, 512), 1.0),
+                     ((1, 16384, 1, 512), 1.0), ((2, 4096, 1, 512), 4.0)]
+    res["K2_f32"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k2_f32_cases]
+    res["K3_bf16"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k3_bf16_cases]
+    _attention_refusals(torch, g)
     # cuBLAS keeps a workspace for each stream it ran on (the timing's side
     # and capture streams): release them, so the main path's peak memory
     # counts the main path's own allocations only
@@ -545,39 +602,50 @@ def _zero_counts() -> None:
     slerp.launches = 0
     slerp.launches_tree_step = 0
     attention.launches_self = 0
+    attention.launches_self_f32 = 0
     attention.launches_vae = 0
+    attention.launches_vae_bf16 = 0
 
 
 def _read_counts() -> dict:
     from latentblending_tpu_torch.ops import attention, slerp
 
     return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
-            "K3": attention.launches_vae}
+            "K2_f32": attention.launches_self_f32, "K3": attention.launches_vae,
+            "K3_bf16": attention.launches_vae_bf16}
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _expected_launches(be, path: str, k2_per_eval: int) -> dict:
+def _expected_launches(be, path: str, k2_per_eval: int, recycled: int = 0) -> dict:
     """The launches of each kernel one run_transition of `path` makes on
     the engine's plan: K1's tree step once per denoise step on the fused
-    paths; on the per-level path slerp_rows once per step of each denoise
-    call (the edges' and each round's) and once per round for the parental
-    mix; K2 k2_per_eval times per UNet eval; K3 once per VAE decode call
-    (decode_chunk keyframes each)."""
+    paths (a recycled edge 1 rides along as a window); on the per-level
+    path slerp_rows once per step of each denoise call (the edges' unless
+    both are recycled, then each round's) and once per round for the
+    parental mix; K2 k2_per_eval times per UNet eval, in the UNet's dtype;
+    K3 once per VAE decode call (decode_chunk keyframes each; a recycled
+    edge's keyframe is still decoded), in the VAE's dtype."""
     N = be.dh.num_inference_steps
     dc = be.dh.decode_chunk
     n_kf = 2 + sum(int(n) for n in be.list_nmb_stems)
+    k2 = "K2_f32" if str(be.dh.dtype) == "torch.float32" else "K2"
+    k3 = "K3_bf16" if str(be.dh.vae_dtype) == "torch.bfloat16" else "K3"
+    out = dict.fromkeys(("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16"), 0)
     if path in ("fused", "fused-multi"):
         fc = int(os.environ.get("LB_FETCH_CHUNK", "4"))
-        k3 = sum(_ceil(min(fc, n_kf - j), dc) for j in range(0, n_kf, fc))
-        return {"K1_rows": 0, "K1_tree": N, "K2": N * k2_per_eval, "K3": k3}
+        out.update({"K1_tree": N, k2: N * k2_per_eval,
+                    k3: sum(_ceil(min(fc, n_kf - j), dc) for j in range(0, n_kf, fc))})
+        return out
     rounds = [(int(idx), k) for idx, n in zip(be.list_idx_injection, be.list_nmb_stems)
               for k in be._round_sizes(int(n))]
-    evals = N + sum(N - idx for idx, _ in rounds)
-    return {"K1_rows": N + sum(N - idx + 1 for idx, _ in rounds), "K1_tree": 0, "K2": evals * k2_per_eval,
-            "K3": _ceil(2, dc) + sum(_ceil(k, dc) for _, k in rounds)}
+    edge_steps = 0 if recycled == 2 else N
+    evals = edge_steps + sum(N - idx for idx, _ in rounds)
+    out.update({"K1_rows": edge_steps + sum(N - idx + 1 for idx, _ in rounds), k2: evals * k2_per_eval,
+                k3: _ceil(2, dc) + sum(_ceil(k, dc) for _, k in rounds)})
+    return out
 
 
 def _report_path(be) -> str:
@@ -587,7 +655,7 @@ def _report_path(be) -> str:
     return "fused" if levels[0].get("fused") else "per-level"
 
 
-def _check_transition(be, imgs, counts: dict, path: str, k2_per_eval: int, label: str) -> None:
+def _check_transition(be, imgs, counts: dict, path: str, k2_per_eval: int, label: str, recycled: int = 0) -> None:
     """The plan's keyframes (2 edges + its stems) as uint8 of the holder's
     size, one finite similarity per gap, the expected path, and exactly the
     launches _expected_launches gives for it."""
@@ -603,27 +671,28 @@ def _check_transition(be, imgs, counts: dict, path: str, k2_per_eval: int, label
     sims = list(be.tree_similarities)
     if len(sims) != n_kf - 1 or not all(s == s and abs(s) != float("inf") for s in sims):
         raise AssertionError(f"{label}: similarities not {n_kf - 1} finite values: {sims}")
-    want = _expected_launches(be, path, k2_per_eval)
+    want = _expected_launches(be, path, k2_per_eval, recycled)
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
 
-def _drive_path(torch, be, path: str, label: str, k2_per_eval: int) -> dict:
-    """First (counted) and warm run_transition of one path; returns its
-    numbers and the first run's keyframes and tree."""
+def _drive_path(torch, be, path: str, label: str, k2_per_eval: int, **recycle) -> dict:
+    """First (counted) and warm run_transition of one path (recycle: the
+    recycle_img1/2 arguments); returns its numbers and the first run's
+    keyframes and tree."""
     _zero_counts()
     t0 = time.perf_counter()
-    imgs = [im.copy() for im in be.run_transition(fixed_seeds=SEEDS)]
+    imgs = [im.copy() for im in be.run_transition(fixed_seeds=SEEDS, **recycle)]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = _read_counts()
-    _check_transition(be, imgs, counts, path, k2_per_eval, label)
+    _check_transition(be, imgs, counts, path, k2_per_eval, label, sum(bool(v) for v in recycle.values()))
     print(f"{label}: launches during run_transition {json.dumps(counts)} (as expected), first call {first_s:.4f} s",
           flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    imgs2 = be.run_transition(fixed_seeds=SEEDS)
+    imgs2 = be.run_transition(fixed_seeds=SEEDS, **recycle)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -688,6 +757,125 @@ def main_path(torch, be) -> dict:
         "dt_vae": be.dt_vae, "dt_sync": be.dt_sync,
     }), flush=True)
     return {"fused": fused["counts"], "per-level": per_level["counts"]}
+
+
+def _test_image(h: int, w: int, seed: int):
+    """A smooth uint8 [h, w, 3] test picture (sinusoids and a seeded phase),
+    made on the host as a user's image would arrive."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    chans = [127.5 + 127.5 * np.sin(xx / rng.uniform(9, 40) + rng.uniform(0, 6)) * np.cos(yy / rng.uniform(9, 40))
+             for _ in range(3)]
+    return np.stack(chans, -1).round().astype(np.uint8)
+
+
+def _encode_counted(torch, be, setter, image, label: str) -> dict:
+    """set_keyframe{1,2}_image with the launch counts zeroed: one K3 launch
+    (the encoder's mid block) in the VAE's dtype, nothing else."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    setter(image)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = dict.fromkeys(counts, 0)
+    want["K3_bf16" if str(be.dh.vae_dtype) == "torch.bfloat16" else "K3"] = 1
+    print(f"{label}: {image.shape[0]}x{image.shape[1]} uint8 image encoded in {time.perf_counter() - t0:.4f} s "
+          f"(first call), launches {json.dumps(counts)}", flush=True)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return counts
+
+
+def image_phase(torch, turbo_dh) -> dict:
+    """Image keyframes at SDXL-Turbo 512², full width, on a holder with the
+    turbo holder's UNet and CLIP towers and a bf16 copy of its VAE
+    (vae_dtype=torch.bfloat16): set_keyframe1_image on a 512² picture, then
+    run_transition(recycle_img1=True) (the fused path, the image trajectory
+    as its window); set_keyframe2_image on a 640×768 picture (resized on
+    the card), then run_transition(recycle_img2=True) (the per-level path);
+    each first and warm, with exact launches (K3 bf16 for every decode and
+    encode). Then the same 12 final latents decoded by the f32 and the bf16
+    VAE at 512², and one latent at 1024²: LSB apart and ms per keyframe."""
+    import copy
+
+    from latentblending_tpu_torch.engine.blending import BlendingEngine
+    from latentblending_tpu_torch.models.layers import cast_keep_norms_f32
+    from latentblending_tpu_torch.runtime.holder import SDXLHolder
+
+    t0 = time.perf_counter()
+    vae16 = cast_keep_norms_f32(copy.deepcopy(turbo_dh.vae), torch.bfloat16)
+    dh = SDXLHolder("sdxl-turbo", {"unet": turbo_dh.unet, "vae": vae16, "clip1": turbo_dh.clip1,
+                                   "clip2": turbo_dh.clip2}, dtype=torch.bfloat16, vae_dtype=torch.bfloat16,
+                    device="cuda")
+    be = BlendingEngine(dh)
+    be.set_negative_prompt("blurry, low quality")
+    be.set_prompt1("photo of a forest at dawn, mist between the trees")
+    be.set_prompt2("photo of a city at night, neon lights in the rain")
+    torch.cuda.synchronize()
+    print(f"setup: image-keyframe holder (the turbo UNet and CLIP, a bf16 VAE copy; decode_chunk "
+          f"{dh.decode_chunk}) and engine in {time.perf_counter() - t0:.3f} s", flush=True)
+    k2 = K2_PER_EVAL[dh.height_img]
+    counts = {"image 1 encode": _encode_counted(torch, be, be.set_keyframe1_image, _test_image(512, 512, 1),
+                                                "set_keyframe1_image")}
+    run1 = _drive_path(torch, be, "fused", "image 1, fused (recycle_img1)", k2, recycle_img1=True)
+    finals = torch.cat([t[-1] for t in be.tree_latents], dim=0)
+    counts["image 1, fused"] = run1["counts"]
+    counts["image 2 encode"] = _encode_counted(torch, be, be.set_keyframe2_image, _test_image(640, 768, 2),
+                                               "set_keyframe2_image")
+    run2 = _drive_path(torch, be, "per-level", "image 2, per-level (recycle_img2)", k2, recycle_img2=True)
+    counts["image 2, per-level"] = run2["counts"]
+    # where the time goes with a bf16 VAE: the main path's fused transition
+    # (no image), as profile_paths runs it for the f32 VAE
+    profile_paths(torch, be, (("fused, bf16 VAE", "1"),))
+
+    # f32 against bf16 decodes of the same latents
+    g = torch.Generator(device=dh.device).manual_seed(3)
+    big = torch.randn((1, 128, 128, 4), generator=g, device=dh.device).to(torch.bfloat16)
+    for size, lat in ((512, finals), (1024, big)):
+        stats = {}
+        for name, h in (("f32", turbo_dh), ("bf16", dh)):
+            h.set_dimensions((size, size))
+            h.to_uint8_device(h.decode_to_pm1_batched(lat))  # first call: algorithm choice, allocator growth
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u8 = h.to_uint8_device(h.decode_to_pm1_batched(lat))
+            torch.cuda.synchronize()
+            stats[name] = (u8, (time.perf_counter() - t0) * 1e3 / lat.shape[0], h.decode_chunk)
+            h.set_dimensions(None)
+        diff = (stats["f32"][0].int() - stats["bf16"][0].int()).abs()
+        print(f"decode f32 vs bf16 VAE at {size}²: {lat.shape[0]} latents, max {diff.max().item()} LSB, mean "
+              f"{diff.float().mean().item():.4f} LSB, share of values apart {(diff > 0).float().mean().item():.4f}; "
+              f"ms per keyframe f32 {stats['f32'][1]:.3f} (chunk {stats['f32'][2]}), bf16 {stats['bf16'][1]:.3f} "
+              f"(chunk {stats['bf16'][2]})", flush=True)
+    return counts
+
+
+def f32_unet_phase(torch, turbo_dh) -> dict:
+    """A holder whose UNet is an f32 copy of the turbo UNet (10.3 GB, freed
+    after): one fused run_transition at 512², first and warm; K2 runs in
+    f32 (steps x 10 launches of K2 f32, none of K2 bf16)."""
+    import copy
+
+    from latentblending_tpu_torch.engine.blending import BlendingEngine
+    from latentblending_tpu_torch.runtime.holder import SDXLHolder
+
+    t0 = time.perf_counter()
+    unet32 = copy.deepcopy(turbo_dh.unet).float()
+    dh = SDXLHolder("sdxl-turbo", {"unet": unet32, "vae": turbo_dh.vae, "clip1": turbo_dh.clip1,
+                                   "clip2": turbo_dh.clip2}, dtype=torch.float32, device="cuda")
+    be = BlendingEngine(dh)
+    be.set_negative_prompt("blurry, low quality")
+    be.set_prompt1("photo of a forest at dawn, mist between the trees")
+    be.set_prompt2("photo of a city at night, neon lights in the rain")
+    torch.cuda.synchronize()
+    print(f"setup: f32-UNet holder ({sum(p.numel() * p.element_size() for p in unet32.parameters())} bytes of "
+          f"UNet weights) and engine in {time.perf_counter() - t0:.3f} s", flush=True)
+    run = _drive_path(torch, be, "fused", "f32 UNet, fused", K2_PER_EVAL[dh.height_img])
+    del be, dh, unet32
+    torch.cuda.empty_cache()
+    return {"f32 UNet, fused": run["counts"]}
 
 
 BASE_PLAN = ([15, 18, 21, 24, 27], [3, 2, 1, 1, 1])
@@ -827,8 +1015,12 @@ def _kernels_line(kres: dict, counts: dict) -> list:
                     "latentblending_tpu_torch/csrc/slerp.cu", replaces_k1),
         "K2": ("attention_d64_bf16 (wgmma, TMA)", "latentblending_tpu_torch/csrc/attention_d64_bf16.cu",
                "latentblending_tpu/models/layers.py:192"),
+        "K2_f32": ("attention_d64_f32 (3xTF32 mma.sync)", "latentblending_tpu_torch/csrc/attention_d64_f32.cu",
+                   "latentblending_tpu/models/layers.py:192"),
         "K3": ("attention_d512_f32 (3xTF32 mma.sync, 2-CTA cluster)",
                "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
+        "K3_bf16": ("attention_d512_bf16 (bf16 mma.sync, 2-CTA cluster)",
+                    "latentblending_tpu_torch/csrc/attention_d512_bf16.cu", "latentblending_tpu/models/layers.py:373"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
@@ -886,6 +1078,9 @@ def main() -> int:
     profile_paths(torch, be)
     be.tree_latents, be._imgs_dev, be.tree_final_imgs = [None, None], [], []
     torch.cuda.empty_cache()
+    counts.update(image_phase(torch, be.dh))
+    torch.cuda.empty_cache()
+    counts.update(f32_unet_phase(torch, be.dh))
     counts.update(base_phase(torch, be.dh))
 
     kernels = _kernels_line(kres, counts)

@@ -1,7 +1,7 @@
 // Hand-written PTX helpers shared by the port's kernels (sm_90a):
 // mbarriers, TMA tile loads, cp.async, wgmma (bf16, 128-byte swizzle),
-// mma.sync TF32 with a hi/lo operand split, and thread-block-cluster
-// shared memory. Header only; every function is inlined into its kernel.
+// mma.sync TF32 with a hi/lo operand split, mma.sync bf16 with ldmatrix,
+// and thread-block-cluster shared memory. Header only; every function is inlined into its kernel.
 #pragma once
 
 #include <cuda.h>
@@ -164,6 +164,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], float (&c)[NT][4],
   for (int n = 0; n < NT; ++n) mma_tf32(d[n], ahi, bhi[n]);
 #pragma unroll
   for (int n = 0; n < NT; ++n) mma_tf32(c[n], ahi, blo[n]);
+}
+
+// ------------------------------------------------------------ mma.sync bf16
+
+// D[16x8] += A[16x16] * B[16x8], bf16 in, f32 accumulate (row.col
+// fragments: a = bf16 pairs at rows g, g+8 and columns 2t, 2t+8; b = bf16
+// pairs at k rows 2t, 2t+8 of column g).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the row addresses of matrix i, and register i of lane (4g + t)
+// holds elements (2t, g) and (2t + 1, g) of matrix i, the B fragment of
+// mma_bf16 for a row-major [k][n] operand.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
 }
 
 // ------------------------------------------------------------------- clusters

@@ -30,9 +30,11 @@ host copies that are still in flight when the transition returns its
 handles (`run_transition_streaming`, `resolve_image`); the last round's
 gap similarities are deferred to `finalize_report`. `run_transition`
 resolves both and returns uint8 [H,W,3] numpy keyframes.
-`extend_transition` deepens a finished tree. LPIPS, image keyframes,
-movie writing, sessions and the tree cache are not ported yet
-(ROADMAP.md).
+`extend_transition` deepens a finished tree. An image can pin either
+keyframe (`set_keyframe1_image` / `set_keyframe2_image`, then
+`run_transition(recycle_img1/2=True)`): the VAE encodes it and a
+forward-noised trajectory stands in for that edge's denoise. LPIPS, movie
+writing, sessions and the tree cache are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -180,6 +182,8 @@ class BlendingEngine:
         self.prompt1 = ""
         self.prompt2 = ""
         self.negative_prompt = ""
+        self.image1_lowres = None
+        self.image2_lowres = None
 
         self.tree_latents: list = [None, None]
         self.tree_fracts: list = [0.0, 1.0]
@@ -546,6 +550,46 @@ class BlendingEngine:
     def set_prompt2(self, prompt: str):
         self.prompt2 = prompt.replace("_", " ")
         self.text_embedding2 = self.dh.get_text_embedding(self.prompt2)
+
+    def set_image1(self, image):
+        self.image1_lowres = image
+
+    def set_image2(self, image):
+        self.image2_lowres = image
+
+    def _image_noise(self, seed: int, shape: tuple) -> torch.Tensor:
+        """The unit-normal ε of an image trajectory, float32 from a
+        torch.Generator seeded with `seed` (the JAX package draws it with
+        jax.random.normal; tests replace this method with that draw)."""
+        gen = torch.Generator(device=self.dh.device).manual_seed(int(seed))
+        return torch.randn(shape, generator=gen, device=self.dh.device, dtype=torch.float32)
+
+    @torch.no_grad()
+    def compute_latents_from_image(self, image, seed: int) -> list:
+        """Keyframe trajectory from a real image: VAE-encode it to x0, then
+        the diffusion states x_i = x0 + σ_{i+1}·ε with one fixed unit-noise
+        draw (the forward-noised states an ideal denoiser would pass); the
+        last entry is x0 (σ_N = 0)."""
+        x0 = self.dh.image2latent(image)
+        eps = self._image_noise(seed, tuple(x0.shape)).to(x0.dtype)
+        sig = self.dh.schedule.sigmas
+        return [x0 + float(sig[i + 1]) * eps for i in range(self.num_inference_steps)]
+
+    def set_keyframe1_image(self, image, seed: Optional[int] = None):
+        """Pin the first keyframe to a real image; run with
+        run_transition(recycle_img1=True)."""
+        self.set_image1(image)
+        self.tree_latents[0] = self.compute_latents_from_image(image, self.seed1 if seed is None else seed)
+
+    def set_keyframe2_image(self, image, seed: Optional[int] = None):
+        """Pin the second keyframe to a real image; run with
+        run_transition(recycle_img2=True)."""
+        self.set_image2(image)
+        traj = self.compute_latents_from_image(image, self.seed2 if seed is None else seed)
+        if self.tree_latents[-1] is None or len(self.tree_latents) < 2:
+            self.tree_latents = [self.tree_latents[0], traj]
+        else:
+            self.tree_latents[-1] = traj
 
     def set_num_inference_steps(self, num_inference_steps: Optional[int] = None):
         if num_inference_steps is None:
@@ -1125,8 +1169,9 @@ class BlendingEngine:
         self.last_report.phases = self.timer.summary()
         self.last_report.wall_s = time.time() - self._t_run0
 
-    def compute_latents1(self) -> list:
-        """First keyframe trajectory (single branch)."""
+    def compute_latents1(self, return_image: bool = False):
+        """First keyframe trajectory (single branch); with return_image its
+        uint8 keyframe instead."""
         cond = self.get_mixed_conditioning(0.0)
         self.dh.guidance_scale = self.guidance_scale
         t0 = time.time()
@@ -1137,11 +1182,14 @@ class BlendingEngine:
             self._observe_unet_step(sample)
             self._dt_step_by_batch[1] = self._observe(self._dt_step_by_batch.get(1), sample)
         self.tree_latents[0] = out
+        if return_image:
+            return self.dh.latent2image(out[-1])
         return out
 
-    def compute_latents2(self) -> list:
+    def compute_latents2(self, return_image: bool = False):
         """Second keyframe trajectory, crossfed from the first when
-        branch1 crossfeed is on."""
+        branch1 crossfeed is on; with return_image its uint8 keyframe
+        instead."""
         cond = self.get_mixed_conditioning(1.0)
         self.dh.guidance_scale = self.guidance_scale
         latents_start = self.get_noise(self.seed2)
@@ -1155,6 +1203,8 @@ class BlendingEngine:
         else:
             out = self.dh.run_diffusion(cond, latents_start)
         self.tree_latents[-1] = out
+        if return_image:
+            return self.dh.latent2image(out[-1])
         return out
 
     def _compute_edge_latents_batched(self):

@@ -3,9 +3,10 @@
 Counterpart of latentblending_tpu/models/vae.py with the HF checkpoint's
 module tree (encoder/decoder.down_blocks/up_blocks.i.resnets.j,
 mid_block.attentions.0, quant_conv, post_quant_conv: 248 tensors at full
-size). The full tree is built so a checkpoint loads completely; only
-`decode` runs in this port so far. The encoder mirrors the JAX package's
-(symmetric stride-2 padding in its downsamplers).
+size). `decode` renders keyframes; `encode` turns image keyframes into
+latents. The encoder mirrors the JAX package's (symmetric stride-2
+padding in its downsamplers, where diffusers pads (0,1,0,1)). The module
+computes in the dtype of its weights (f32, or bf16 with f32 norms).
 """
 from __future__ import annotations
 
@@ -110,7 +111,8 @@ class VAEEncoder(nn.Module):
 
 
 class VAE(nn.Module):
-    """AutoencoderKL; decode() is the hot path (keyframe rendering)."""
+    """AutoencoderKL; decode() is the hot path (keyframe rendering),
+    encode() serves image keyframes."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -125,5 +127,12 @@ class VAE(nn.Module):
         [B,3,H,W] in about [-1,1]."""
         z = self.post_quant_conv(latents.to(self.post_quant_conv.weight.dtype))
         return self.decoder(z)
+
+    def encode(self, image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """image [B,3,H,W] in [-1,1] → (mean, logvar), each [B,4,H/8,W/8],
+        logvar clipped to [-30, 20]."""
+        moments = self.quant_conv(self.encoder(image.to(self.quant_conv.weight.dtype)))
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     forward = decode

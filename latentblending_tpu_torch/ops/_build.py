@@ -40,7 +40,9 @@ _SIGNATURES = {
     "lb_slerp_tree_step_f32": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, _P],
     "lb_slerp_tree_step_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, _P],
     "lb_attention_fwd_d64_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "lb_attention_fwd_d64_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "lb_attention_fwd_d512_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "lb_attention_fwd_d512_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
 
 

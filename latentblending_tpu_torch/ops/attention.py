@@ -1,25 +1,32 @@
-"""K2/K3: non-causal attention forward — the hand-written CUDA kernel and
-its plain PyTorch version.
+"""K2/K3: non-causal attention forward — the hand-written CUDA kernels and
+their plain PyTorch version.
 
-Replaces the Pallas TPU `flash_attention` calls of
-latentblending_tpu/models/layers.py behind `_use_flash_attention`:
+Replace the Pallas TPU `flash_attention` calls of
+latentblending_tpu/models/layers.py behind `_use_flash_attention`, which
+run in their module's dtype:
 
-- K2, `Attention.__call__`: UNet self-attention, head dim 64, bf16
-  (SDXL-Turbo 512²: q/k/v [10, 1024, 10, 64], 10 calls per UNet eval);
+- K2, `Attention.__call__`: UNet self-attention, head dim 64, in the
+  UNet's dtype, bf16 or f32 (SDXL-Turbo 512²: q/k/v [10, 1024, 10, 64],
+  10 calls per UNet eval);
 - K3, `VAEAttention.__call__`: the VAE mid block's single head of d=512,
-  f32 (512²: [chunk, 4096, 1, 512]).
+  decoder and encoder, in the VAE's dtype, f32 or bf16 (512²:
+  [chunk, 4096, 1, 512]).
 
-Both are online-softmax (flash) forwards on the tensor cores, with f32
+All four are online-softmax (flash) forwards on the tensor cores, with f32
 accumulation, a 1/√d scale and the [B, L, H, d] layout in and out; they
 never write the [B,H,L,L] logits, so memory stays O(L·tile):
 
-- K2, csrc/attention_d64_bf16.cu: warpgroup MMA (wgmma) on bf16, Q and
-  K/V tiles loaded by TMA, softmax and P (bf16) kept in registers; query
-  tiles of 64 rows, key tiles of 128 rows.
-- K3, csrc/attention_d512_f32.cu: mma.sync TF32 in three passes (3xTF32,
-  hi/lo operand split: ~f32 accuracy), d split across a 2-CTA cluster
-  that exchanges partial scores through distributed shared memory; query
-  and key tiles of 64 rows, one head only.
+- K2 bf16, csrc/attention_d64_bf16.cu: warpgroup MMA (wgmma) on bf16, Q
+  and K/V tiles loaded by TMA, softmax and P (bf16) kept in registers;
+  query tiles of 64 rows, key tiles of 128 rows.
+- K2 f32, csrc/attention_d64_f32.cu: mma.sync TF32 in three passes
+  (3xTF32, hi/lo operand split: ~f32 accuracy), one CTA per 64 query rows
+  of one head, K/V tiles of 64 rows by cp.async, P kept in registers.
+- K3 f32, csrc/attention_d512_f32.cu: 3xTF32 mma.sync, d split across a
+  2-CTA cluster that exchanges partial scores through distributed shared
+  memory; query and key tiles of 64 rows, one head only.
+- K3 bf16, csrc/attention_d512_bf16.cu: the same cluster split with one
+  bf16 mma.sync pass (P rounded to bf16 before P V).
 
 `flash_attention` takes CUDA tensors to the kernel (or raises) and CPU
 tensors to `attention_reference`; nothing falls back from one to the other.
@@ -30,16 +37,19 @@ import torch
 
 # kernel launches, per site (a CPU call launches nothing)
 launches_self = 0  # K2: d=64 bf16
+launches_self_f32 = 0  # K2: d=64 f32
 launches_vae = 0  # K3: d=512 f32
+launches_vae_bf16 = 0  # K3: d=512 bf16
 
-# (head dim, dtype) -> (C entry point, counter name)
+# (head dim, dtype) -> (C entry point, counter name, the sequence multiple
+# its tiles need: K2 bf16 64-row query and 128-row key tiles, the others
+# 64-row query and key tiles)
 _KERNELS = {
-    (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "launches_self"),
-    (512, torch.float32): ("lb_attention_fwd_d512_f32", "launches_vae"),
+    (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "launches_self", 128),
+    (64, torch.float32): ("lb_attention_fwd_d64_f32", "launches_self_f32", 64),
+    (512, torch.float32): ("lb_attention_fwd_d512_f32", "launches_vae", 64),
+    (512, torch.bfloat16): ("lb_attention_fwd_d512_bf16", "launches_vae_bf16", 64),
 }
-# head dim -> the sequence multiple the kernel's tiles need: K2 64-row
-# query and 128-row key tiles, K3 64-row query and key tiles
-_SEQ_MULTIPLE = {64: 128, 512: 64}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None) -> torch.Tensor:
@@ -66,8 +76,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("flash_attention: q, k, v must share shape and dtype (self-attention)")
     if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q, k and v must be on the same CUDA device")
-    if L % _SEQ_MULTIPLE[D]:
-        raise ValueError(f"flash_attention: sequence length {L} is not a multiple of {_SEQ_MULTIPLE[D]}")
+    name, counter, multiple = _KERNELS[key]
+    if L % multiple:
+        raise ValueError(f"flash_attention: sequence length {L} is not a multiple of {multiple}")
     if D == 512 and H != 1:
         raise ValueError(f"flash_attention: the d=512 kernel takes one head, not {H}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -76,7 +87,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("flash_attention: q, k, v must start on a 16-byte boundary (TMA / cp.async loads)")
     from latentblending_tpu_torch.ops import _build
 
-    name, counter = _KERNELS[key]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

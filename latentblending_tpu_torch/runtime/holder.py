@@ -6,14 +6,16 @@ modules on `device`, the card unless the caller passes device="cpu" (it
 raises where there is no card); the public tensors keep the JAX package's
 layout (latents [B,h,w,4], images [B,H,W,3] in [-1,1]) and the holder
 permutes to NCHW at the UNet/VAE boundary. The UNet runs in `dtype` (bf16
-by default), the VAE in float32 (the reference's force_upcast, and what the
-JAX package does off the TPU); the CLIP towers compute in float32.
+by default), the VAE in `vae_dtype` (float32 by default: the reference's
+force_upcast, and what the JAX package does off the TPU; bf16 on request,
+with float32 norms); the CLIP towers compute in float32.
 Random noise comes from explicit torch.Generators; it cannot reproduce
 jax.random draws, so tests hand both packages the same draws.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Optional
 
@@ -27,6 +29,7 @@ from latentblending_tpu_torch.models.layers import cast_keep_norms_f32, init_lik
 from latentblending_tpu_torch.models.tokenizer import HashTokenizer
 from latentblending_tpu_torch.models.unet import UNet2DCondition
 from latentblending_tpu_torch.models.vae import VAE
+from latentblending_tpu_torch.ops.resize import resize_area
 from latentblending_tpu_torch.ops.scheduler import (
     SDXL_BASE_SCHEDULER,
     SDXL_TURBO_EULER_SCHEDULER,
@@ -88,14 +91,16 @@ TINY_BASE = ModelSpec(
 SPECS = {s.name: s for s in (SDXL_TURBO, SDXL_BASE, TINY_TURBO, TINY_ANCESTRAL, TINY_BASE)}
 
 
-def build_modules(spec: ModelSpec, dtype: torch.dtype, device) -> dict[str, nn.Module]:
+def build_modules(spec: ModelSpec, dtype: torch.dtype, device,
+                  vae_dtype: Optional[torch.dtype] = None) -> dict[str, nn.Module]:
     """The four modules of a spec, allocated uninitialised on `device`
     (structure built on the meta device: no memory is touched twice). UNet
-    in `dtype` with float32 norms; VAE and CLIP towers in float32."""
+    in `dtype` and VAE in `vae_dtype` (None: float32), each with float32
+    norms; CLIP towers in float32."""
     with torch.device("meta"):
         mods = {
             "unet": cast_keep_norms_f32(UNet2DCondition(spec.unet, spec.pooled_dim), dtype),
-            "vae": VAE(spec.vae),
+            "vae": cast_keep_norms_f32(VAE(spec.vae), vae_dtype or torch.float32),
             "clip1": CLIPTextEncoder(spec.clip1),
             "clip2": CLIPTextEncoder(spec.clip2),
         }
@@ -112,11 +117,23 @@ def _holder_device(device) -> torch.device:
 
 class SDXLHolder:
     def __init__(self, spec: ModelSpec | str, modules: dict[str, nn.Module], tokenizer1=None, tokenizer2=None,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, vae_dtype: Optional[torch.dtype] = None, device="cuda"):
         """modules: {'unet', 'vae', 'clip1', 'clip2'} port nn.Modules on `device`
-        (the card unless the caller asks for the CPU)."""
+        (the card unless the caller asks for the CPU), the VAE's weights in
+        `vae_dtype`.
+
+        vae_dtype: None means float32. The JAX package picks bf16 when its
+        backend is a TPU and float32 elsewhere; the port keeps float32 on
+        the card until a bf16 VAE's keyframes are measured there, since it
+        changes every keyframe. torch.bfloat16 runs the VAE (decode and
+        encode) in bf16 with float32 norms, as the JAX package's bf16 VAE
+        does, and its mid-block attention on the bf16 kernel (K3 bf16)."""
         self.spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
         self.dtype = dtype
+        self.vae_dtype = torch.float32 if vae_dtype is None else vae_dtype
+        vae_weights = modules["vae"].post_quant_conv.weight.dtype
+        if vae_weights != self.vae_dtype:
+            raise ValueError(f"SDXLHolder: the VAE's weights are {vae_weights}, vae_dtype is {self.vae_dtype}")
         self.device = _holder_device(device)
         self.is_sdxl_turbo = self.spec.is_sdxl_turbo
         self.unet = modules["unet"]
@@ -138,6 +155,7 @@ class SDXLHolder:
         # index); the engine restarts the stream at each transition
         self.noise_seed_base = 0
         self._noise_call = 0
+        self._decode_chunk_override: Optional[int] = None
         # denoise signatures already run (see _note_warm)
         self._warm_keys: set = set()
         self.last_run_was_warm = False
@@ -149,29 +167,31 @@ class SDXLHolder:
 
     @classmethod
     def from_random(cls, spec: ModelSpec | str = "tiny-turbo", seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                    device="cuda", **kw) -> "SDXLHolder":
+                    vae_dtype: Optional[torch.dtype] = None, device="cuda", **kw) -> "SDXLHolder":
         """Random-weight holder of the full architecture, built and
         initialised directly on `device` (initialisation as the JAX
-        package's flax init, drawn from a torch.Generator seeded with `seed`)."""
+        package's flax init, drawn from a torch.Generator seeded with `seed`).
+        vae_dtype as in __init__ (None: float32)."""
         spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
         device = _holder_device(device)
-        mods = build_modules(spec, dtype, device)
+        mods = build_modules(spec, dtype, device, vae_dtype)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         for m in mods.values():
             init_like_jax_(m, gen)
-        return cls(spec, mods, dtype=dtype, device=device, **kw)
+        return cls(spec, mods, dtype=dtype, vae_dtype=vae_dtype, device=device, **kw)
 
     @classmethod
     def from_state_dicts(cls, spec: ModelSpec | str, state_dicts: dict[str, dict], dtype: torch.dtype = torch.bfloat16,
-                         device="cuda", **kw) -> "SDXLHolder":
+                         vae_dtype: Optional[torch.dtype] = None, device="cuda", **kw) -> "SDXLHolder":
         """Holder from {'unet','vae','clip1','clip2'} state dicts in the port's
-        (HF) key names, e.g. from models.weights.params_from_jax."""
+        (HF) key names, e.g. from models.weights.params_from_jax; each tensor
+        is stored in its module's dtype. vae_dtype as in __init__."""
         spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
         device = _holder_device(device)
-        mods = build_modules(spec, dtype, device)
+        mods = build_modules(spec, dtype, device, vae_dtype)
         for name, m in mods.items():
             m.load_state_dict(state_dicts[name], strict=True)
-        return cls(spec, mods, dtype=dtype, device=device, **kw)
+        return cls(spec, mods, dtype=dtype, vae_dtype=vae_dtype, device=device, **kw)
 
     # ----------------------------------------------------------------- state
 
@@ -201,9 +221,27 @@ class SDXLHolder:
 
     @property
     def decode_chunk(self) -> int:
-        """VAE decode batch per call: the JAX package's rule for an f32 VAE
-        (4 images at ≤512², 1 above). Not yet re-measured on the GPU."""
-        return 4 if self.height_img * self.width_img <= 512 * 512 else 1
+        """VAE decode batch per call: a value set on the holder, else
+        LB_DECODE_CHUNK, else the JAX package's rule: a base of 8 images
+        for a bf16 VAE and 4 for an f32 one at ≤512², base // 4 between
+        512² and 1024², 1 at ≥1024². The rule's numbers were measured on a
+        TPU v5e (the JAX package's tools/profile_vae.py), not on the GPU."""
+        if self._decode_chunk_override is not None:
+            return self._decode_chunk_override
+        env = os.environ.get("LB_DECODE_CHUNK")
+        if env:
+            return max(1, int(env))
+        base = 8 if self.vae_dtype == torch.bfloat16 else 4
+        area = self.height_img * self.width_img
+        if area >= 1024 * 1024:
+            return 1
+        if area <= 512 * 512:
+            return base
+        return max(1, base // 4)
+
+    @decode_chunk.setter
+    def decode_chunk(self, value: int):
+        self._decode_chunk_override = int(value)
 
     def set_negative_prompt(self, negative_prompt):
         if isinstance(negative_prompt, (list, tuple)):
@@ -275,8 +313,12 @@ class SDXLHolder:
 
     @staticmethod
     def to_uint8_device(imgs_pm1: torch.Tensor) -> torch.Tensor:
-        """[-1,1] → uint8, still on the device."""
-        return (torch.clamp(imgs_pm1 / 2 + 0.5, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        """[-1,1] → uint8, still on the device. The conversions to uint8
+        (this, to_i420_device, latent2image) compute in float32 whatever
+        the VAE's dtype, so a bf16 image is rounded once. The JAX package
+        computes them in the image's dtype, rounding after every op; on the
+        same bf16 images the two agree within 1 (RGB) and 2 (I420)."""
+        return (torch.clamp(imgs_pm1.float() / 2 + 0.5, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
     @staticmethod
     def to_i420_device(imgs_pm1: torch.Tensor) -> torch.Tensor:
@@ -320,12 +362,30 @@ class SDXLHolder:
         if latents.ndim == 3:
             latents = latents[None]
         img = self.decode_to_pm1_batched(latents[:1])
-        img = (torch.clamp(img / 2 + 0.5, 0.0, 1.0) * 255.0).round().to(torch.uint8)[0].cpu().numpy()
+        img = (torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0) * 255.0).round().to(torch.uint8)[0].cpu().numpy()
         if output_type == "pil":
             from PIL import Image
 
             return Image.fromarray(img)
         return img
+
+    # --------------------------------------------------------- encode path
+
+    @torch.no_grad()
+    def image2latent(self, image) -> torch.Tensor:
+        """uint8 image [H,W,3] (or anything np.asarray takes; PIL is never
+        imported) → scaled latent [1,h,w,4], the posterior mean, in the
+        holder's dtype. An image of another size is resized on the device
+        with OpenCV's INTER_AREA rule (ops/resize.py), where the JAX package
+        calls cv2.resize on the host. The VAE encodes in vae_dtype."""
+        img = np.asarray(image)
+        if img.shape[:2] != (self.height_img, self.width_img):
+            x = resize_area(img, self.height_img, self.width_img, device=self.device)
+        else:
+            x = torch.as_tensor(np.ascontiguousarray(img), device=self.device)
+        x = x.to(torch.float32)[None] / 255.0 * 2.0 - 1.0
+        mean, _ = self.vae.encode(x.permute(0, 3, 1, 2).contiguous())
+        return (mean * self.spec.vae.scaling_factor).permute(0, 2, 3, 1).contiguous().to(self.dtype)
 
     # -------------------------------------------------------- denoise paths
 
@@ -488,9 +548,11 @@ class SDXLHolder:
         )
 
     def run_diffusion(self, text_embeddings, latents_start: torch.Tensor, idx_start: int = 0,
-                      list_latents_mixing=None, mixing_coeffs=0.0, guidance_rescale: float | None = None):
+                      list_latents_mixing=None, mixing_coeffs=0.0, return_image: bool = False,
+                      guidance_rescale: float | None = None):
         """Single-branch API: the full-length latent list with None for
-        skipped steps."""
+        skipped steps, or with return_image the last latent's uint8 image
+        (latent2image)."""
         N = self.num_inference_steps
         if isinstance(mixing_coeffs, float):
             coeffs = np.full(N, mixing_coeffs, np.float32)
@@ -508,7 +570,10 @@ class SDXLHolder:
             cond, latents_start, idx_start, mix_traj, coeffs if mix_traj is not None else None,
             guidance_rescale=guidance_rescale,
         )
-        return [None] * idx_start + [traj[j] for j in range(N - idx_start)]
+        out = [None] * idx_start + [traj[j] for j in range(N - idx_start)]
+        if return_image:
+            return self.latent2image(out[-1])
+        return out
 
     # ------------------------------------------------------------- timing
 

@@ -1,4 +1,4 @@
-"""The arithmetic of the port's two attention kernels, emulated on the CPU
+"""The arithmetic of the port's four attention kernels, emulated on the CPU
 with plain tensor code, held against the plain version
 (`attention_reference`) and `jax.nn.dot_product_attention`.
 
@@ -13,6 +13,11 @@ each kernel does fits the bounds `chip_smoke.py` holds it to on the card:
   = x rounded to nearest TF32, lo = x - hi truncated to TF32 as the tensor
   core reads it; hi*hi plus the two cross terms summed apart), the online
   softmax over 64-key tiles. Bound: 1e-4 * max |f32 result|.
+- K2 in f32 (csrc/attention_d64_f32.cu): K3's arithmetic at d=64 over
+  64-key tiles, several heads. Bound: K3's, 1e-4 * max |f32 result|.
+- K3 in bf16 (csrc/attention_d512_bf16.cu): K2's arithmetic at d=512 over
+  64-key tiles (bf16 q/k/v, f32 scores, P rounded to bf16 before P V,
+  the row sum from the unrounded P). Bound: K2's, 2e-2 max abs.
 
 Inputs come from numpy seeds; the peaked cases scale q by 4 so that the
 running max is rescaled across tiles."""
@@ -87,17 +92,19 @@ def _per_head(fn, q, k, v):
     return out
 
 
-def k2_emulation(q, k, v):
-    """K2's arithmetic on bf16 q/k/v [B, L, H, 64] → bf16."""
+def k2_emulation(q, k, v, bk: int = K2_BK):
+    """K2's arithmetic on bf16 q/k/v [B, L, H, 64] → bf16; with bk=64 at
+    d=512, K3 bf16's."""
     q, k, v = q.float(), k.float(), v.float()
     fn = lambda q_, k_, v_: _online_attention(  # noqa: E731
-        q_, k_, v_, K2_BK, lambda a, b: a @ b.T, lambda p, vt: p.bfloat16().float() @ vt)
+        q_, k_, v_, bk, lambda a, b: a @ b.T, lambda p, vt: p.bfloat16().float() @ vt)
     return _per_head(fn, q, k, v).bfloat16()
 
 
 def k3_emulation(q, k, v, pv_passes: int = 3):
-    """K3's arithmetic on f32 q/k/v [B, L, 1, 512]; pv_passes=1 gives the
-    single-TF32-pass P V the kernel does not use."""
+    """K3's arithmetic on f32 q/k/v [B, L, 1, 512], and K2 f32's on
+    [B, L, H, 64] (the same 64-key tiles and 3xTF32 products); pv_passes=1
+    gives the single-TF32-pass P V the kernels do not use."""
     pv_mm = _matmul_3xtf32 if pv_passes == 3 else _matmul_1xtf32
     fn = lambda q_, k_, v_: _online_attention(  # noqa: E731
         q_, k_, v_, K3_BK, lambda a, b: _matmul_3xtf32(a, b.T), pv_mm)
@@ -139,6 +146,35 @@ def test_k3_arithmetic_fits_its_bound(shape, peak):
     bound = K3_REL_BOUND * want.abs().max().item()
     assert (got - want).abs().max().item() <= bound
     assert np.abs(got.numpy() - _jax_attention(q.numpy(), k.numpy(), v.numpy())).max() <= bound
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 2, 64), (1, 1024, 2, 64)])
+@pytest.mark.parametrize("peak", [1.0, 4.0])
+def test_k2_f32_arithmetic_fits_its_bound(shape, peak):
+    """K2 f32 emulation (3xTF32 for both products, 64-key tiles, several
+    heads) vs the f32 plain result and JAX: max abs error <= 1e-4 * max
+    |f32 result|, K3 f32's bound."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(shape, 50 + shape[1], peak))
+    got = k3_emulation(q, k, v)
+    want = tattn.attention_reference(q, k, v)
+    bound = K3_REL_BOUND * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bound
+    assert np.abs(got.numpy() - _jax_attention(q.numpy(), k.numpy(), v.numpy())).max() <= bound
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 1, 512), (1, 1024, 1, 512)])
+@pytest.mark.parametrize("peak", [1.0, 4.0])
+def test_k3_bf16_arithmetic_fits_its_bound(shape, peak):
+    """K3 bf16 emulation (bf16 operands, P rounded to bf16, 64-key tiles)
+    vs the f32 plain result and JAX on the same bf16 inputs: max abs error
+    <= 2e-2, K2 bf16's bound."""
+    q, k, v = _inputs(shape, 60 + shape[1], peak)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = k2_emulation(tq, tk, tv, bk=K3_BK).float()
+    want = tattn.attention_reference(tq.float(), tk.float(), tv.float())
+    assert (got - want).abs().max().item() <= K2_ABS_BOUND
+    jq, jk, jv = (x.float().numpy() for x in (tq, tk, tv))
+    assert np.abs(got.numpy() - _jax_attention(jq, jk, jv)).max() <= K2_ABS_BOUND
 
 
 def test_k3_single_tf32_pass_for_pv_does_not_fit():

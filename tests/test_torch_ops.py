@@ -189,7 +189,8 @@ def test_kernels_match_plain_versions_on_gpu():
     path's shapes (per-level and fused), SDXL-base 1024²'s, and one peaked
     case each (q scaled by 4), with the bounds of chip_smoke.py: K1 bf16
     2e-2 / f32 1e-5 (and exact at fractions 0 and 1), K2 2e-2 abs vs f32,
-    K3 1e-4 relative."""
+    K3 1e-4 relative; K2 in f32 as K3, K3 in bf16 as K2; a head dim and
+    dtype with no kernel raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -228,8 +229,25 @@ def test_kernels_match_plain_versions_on_gpu():
         assert tattn.launches_vae == n + 1
         want = tattn.attention_reference(q, k, v)
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), shape
+    # K2 in f32 (a float32 UNet) and K3 in bf16 (a bf16 VAE, decode and encode)
+    for shape, peak in [((12, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((10, 1024, 10, 64), 4.0)]:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        q = q * peak
+        n = tattn.launches_self_f32
+        got = tattn.flash_attention(q, k, v)
+        assert tattn.launches_self_f32 == n + 1
+        want = tattn.attention_reference(q, k, v)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), shape
+    for shape, peak in [((4, 4096, 1, 512), 1.0), ((8, 4096, 1, 512), 1.0), ((1, 4096, 1, 512), 1.0),
+                        ((1, 16384, 1, 512), 1.0), ((2, 4096, 1, 512), 4.0)]:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        q, k, v = (q * peak).bfloat16(), k.bfloat16(), v.bfloat16()
+        n = tattn.launches_vae_bf16
+        got = tattn.flash_attention(q, k, v).float()
+        assert tattn.launches_vae_bf16 == n + 1
+        assert (got - tattn.attention_reference(q.float(), k.float(), v.float())).abs().max().item() <= 2e-2, shape
     with pytest.raises(TypeError):
-        tattn.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())  # no d=512 bf16 kernel
+        tattn.flash_attention(q.half(), k.half(), v.half())  # no d=512 fp16 kernel
     with pytest.raises(ValueError):
         tattn.flash_attention(*(torch.randn((1, 4096, 2, 512), device="cuda") for _ in range(3)))  # one head only
     with pytest.raises(ValueError):

@@ -1,8 +1,10 @@
 """Parity of the port's runtime (latentblending_tpu_torch.runtime) with the
 JAX package: denoise_scan for each solver, with and without CFG and
 crossfeed (the JAX per-step ancestral draws injected), and the holder's
-text embedding and chunked VAE decode. Tiny configs, parameters from a JAX
+text embedding, chunked VAE decode, decode-chunk rule and return_image. Tiny configs, parameters from a JAX
 init; f32 tolerance rtol 5e-3 / atol 5e-4 unless a test says otherwise."""
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,9 @@ import torch
 from latentblending_tpu.ops.scheduler import SDXL_TURBO_SCHEDULER, make_schedule
 from latentblending_tpu.runtime import denoise as jd
 from latentblending_tpu.runtime.holder import SDXLHolder as JHolder
+from latentblending_tpu_torch.models.layers import cast_keep_norms_f32
 from latentblending_tpu_torch.runtime import denoise as td
+from latentblending_tpu_torch.runtime import holder as th
 from tests.torch_port_util import port_holder_from_jax, tiny_unet_pair
 
 POOLED = 48
@@ -113,6 +117,81 @@ def test_holder_decode_matches_jax(holders):
     # seeded noise: a torch.Generator draw scaled by init_noise_sigma
     want_noise = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(3))
     torch.testing.assert_close(tdh.get_noise(3), want_noise * tdh.schedule.init_noise_sigma)
+
+
+@pytest.mark.parametrize("size", [(128, 128), (512, 512), (768, 768), (1024, 1024)])
+def test_decode_chunk_rule_matches_jax(holders, size, monkeypatch):
+    """decode_chunk: the JAX rule for an f32 and a bf16 VAE at each size
+    (base 4 or 8 at ≤512², base // 4 between, 1 at ≥1024²), then
+    LB_DECODE_CHUNK, then a value set on the holder, each equal to JAX's."""
+    jdh, tdh = holders
+    jdh16 = JHolder("tiny-turbo", jdh.params, dtype=jnp.float32, vae_dtype=jnp.bfloat16)
+    tdh16 = th.SDXLHolder("tiny-turbo", {"unet": tdh.unet, "clip1": tdh.clip1, "clip2": tdh.clip2,
+                                         "vae": cast_keep_norms_f32(copy.deepcopy(tdh.vae), torch.bfloat16)},
+                          dtype=torch.float32, vae_dtype=torch.bfloat16, device="cpu")
+    monkeypatch.delenv("LB_DECODE_CHUNK", raising=False)
+    pairs = ((jdh, tdh), (jdh16, tdh16))
+    try:
+        for j, t in pairs:
+            j.set_dimensions(size)
+            t.set_dimensions(size)
+            assert t.decode_chunk == j.decode_chunk
+        assert tdh16.decode_chunk == {128: 8, 512: 8, 768: 2, 1024: 1}[size[0]]
+        monkeypatch.setenv("LB_DECODE_CHUNK", "3")
+        for j, t in pairs:
+            assert t.decode_chunk == j.decode_chunk == 3
+        for j, t in pairs:
+            j.decode_chunk = 2
+            t.decode_chunk = 2
+            assert t.decode_chunk == j.decode_chunk == 2
+    finally:
+        for j, t in pairs:
+            j._decode_chunk_override = t._decode_chunk_override = None
+            j.set_dimensions(None)
+            t.set_dimensions(None)
+    with pytest.raises(ValueError, match="vae_dtype"):
+        th.SDXLHolder("tiny-turbo", {"unet": tdh.unet, "vae": tdh.vae, "clip1": tdh.clip1, "clip2": tdh.clip2},
+                      dtype=torch.float32, vae_dtype=torch.bfloat16, device="cpu")
+
+
+def test_return_image_matches_jax(holders):
+    """run_diffusion(return_image=True) and the engine's
+    compute_latents1/2(return_image=True) give the last latent's uint8
+    image (JAX's noise injected): within 1 LSB of JAX's; compute_latents1/2
+    still store their trajectories."""
+    from latentblending_tpu.engine.blending import BlendingEngine as JEngine
+    from latentblending_tpu_torch.engine.blending import BlendingEngine as TEngine
+    from tests.torch_port_util import inject_jax_noise
+
+    jdh, tdh = holders
+    inject_jax_noise(tdh, jdh)
+    try:
+        _return_image_parity(jdh, tdh, JEngine, TEngine)
+    finally:  # the module's holder draws its own noise again
+        for name in ("get_noise", "ancestral_noise", "ancestral_noise_steps"):
+            delattr(tdh, name)
+
+
+def _return_image_parity(jdh, tdh, JEngine, TEngine):
+    te_j = jdh.get_text_embedding("photo of a forest at dawn")
+    te_t = tdh.get_text_embedding("photo of a forest at dawn")
+    want = jdh.run_diffusion(te_j, jdh.get_noise(5), idx_start=1, return_image=True)
+    got = tdh.run_diffusion(te_t, tdh.get_noise(5), idx_start=1, return_image=True)
+    assert got.shape == (128, 128, 3) and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - np.asarray(want).astype(int)).max() <= 1
+    jbe, tbe = JEngine(jdh, run_benchmark=False), TEngine(tdh)
+    for be in (jbe, tbe):
+        be.set_prompt1("photo of a forest at dawn")
+        be.set_prompt2("photo of a city at night")
+        be.set_branch1_crossfeed(0.5, 0.7, 0.2)
+        be.seed1, be.seed2 = 420, 421
+    for name in ("compute_latents1", "compute_latents2"):
+        want, got = getattr(jbe, name)(return_image=True), getattr(tbe, name)(return_image=True)
+        assert got.shape == (128, 128, 3) and got.dtype == np.uint8
+        assert np.abs(got.astype(int) - np.asarray(want).astype(int)).max() <= 1
+    for t, j in zip(tbe.tree_latents, jbe.tree_latents):
+        assert len(t) == len(j) == tdh.num_inference_steps
+        np.testing.assert_allclose(t[-1].numpy(), np.asarray(j[-1]), rtol=5e-3, atol=5e-4)
 
 
 def test_holder_defaults_to_the_card():

@@ -32,11 +32,12 @@ def port_module(module: torch.nn.Module, flax_params) -> torch.nn.Module:
     return module.eval()
 
 
-def port_holder_from_jax(jdh, spec: str) -> "th.SDXLHolder":
-    """A port SDXLHolder (float32, CPU) carrying a JAX holder's parameters."""
-    metas = th.build_modules(th.SPECS[spec], torch.float32, torch.device("meta"))
+def port_holder_from_jax(jdh, spec: str, vae_dtype=None) -> "th.SDXLHolder":
+    """A port SDXLHolder (float32 UNet, VAE in vae_dtype: None is float32;
+    CPU) carrying a JAX holder's parameters."""
+    metas = th.build_modules(th.SPECS[spec], torch.float32, torch.device("meta"), vae_dtype)
     sds = {k: params_from_jax(np_tree(jdh.params[k]), m) for k, m in metas.items()}
-    return th.SDXLHolder.from_state_dicts(spec, sds, dtype=torch.float32, device="cpu")
+    return th.SDXLHolder.from_state_dicts(spec, sds, dtype=torch.float32, vae_dtype=vae_dtype, device="cpu")
 
 
 def jax_ancestral_draws(seed_base: int, call: int, exec_steps: int, shape) -> np.ndarray:
