@@ -22,7 +22,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    [12|2,1024,10,64] and [10,…] peaked, K3 in bf16 at [4|8|1,4096,1,512],
    [1,16384,1,512] and [2,…] peaked; the K2/K3 wrapper's refusals (no
    kernel for fp16, one head at d=512).
-   The f32 kernels are held to K3_REL_BOUND, the bf16 ones to K2_ABS_BOUND.
+   The f32 kernels are held to K3_REL_BOUND, K2 bf16 to K2_ABS_BOUND and
+   K3 bf16 to K3_BF16_REL_BOUND.
    For each case it prints the max abs/rel error, the kernel's device time
    (CUDA-graph replay of 10 launches, median of 10), the time of one call
    (CUDA events, median of 20), the plain version's and, for K2/K3,
@@ -97,12 +98,17 @@ SEEDS = [420, 421]
 # K2: max abs error <= 2e-2 against the plain result in f32 from the same
 #     bf16 inputs (bf16 output rounding of values of order 1);
 # K3: max abs error <= 1e-4 * max |plain result| (f32 both sides);
-# the variants in the other dtype take the bound of their dtype: K2 in f32
-# K3's (3xTF32 both), K3 in bf16 K2's (bf16 operands and P); both bounds
-# are emulated on the CPU in tests/test_torch_attention_numerics.py.
+# K2 in f32 takes K3's bound (3xTF32 both);
+# K3 in bf16: max abs error <= 1e-2 * max |plain result| (bf16 operands, P
+#     and output; relative, because at d=512 and L=16384 the outputs are of
+#     order 0.01-0.1, so an absolute 2e-2 would be a fifth of the largest
+#     and too loose to fail a kernel that dropped a key tile); the bounds
+#     are emulated on the CPU in
+#     tests/test_torch_attention_numerics.py.
 K1_BOUND = {"bfloat16": 2e-2, "float32": 1e-5}
 K2_ABS_BOUND = 2e-2
 K3_REL_BOUND = 1e-4
+K3_BF16_REL_BOUND = 1e-2
 
 
 def _card_line() -> str:
@@ -375,9 +381,10 @@ def _sdpa(torch, q, k, v):
 
 
 def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
-    """flash_attention vs attention_reference on the same inputs: a bf16
-    kernel (K2, K3 bf16) against the plain result in f32 within
-    K2_ABS_BOUND, an f32 one (K3, K2 f32) within K3_REL_BOUND * max |plain|."""
+    """flash_attention vs attention_reference on the same inputs: K2 bf16
+    against the plain result in f32 within K2_ABS_BOUND, K3 bf16 within
+    K3_BF16_REL_BOUND * max |plain|, an f32 one (K3, K2 f32) within
+    K3_REL_BOUND * max |plain|."""
     from latentblending_tpu_torch.ops import attention
 
     q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
@@ -397,8 +404,12 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
     del got, want
     if dtype == torch.bfloat16:
         case.update(_bound(nbytes, flops, "bf16"))
-        case["bound"] = K2_ABS_BOUND
-        case["ok"] = case["finite"] and case["max_abs_err"] <= K2_ABS_BOUND
+        if d == 512:
+            case["bound"] = K3_BF16_REL_BOUND
+            case["ok"] = case["finite"] and case["max_rel_err"] <= K3_BF16_REL_BOUND
+        else:
+            case["bound"] = K2_ABS_BOUND
+            case["ok"] = case["finite"] and case["max_abs_err"] <= K2_ABS_BOUND
     else:
         # the f32 kernels run 3xTF32 on the tensor cores: three TF32 products
         # for each f32 one, so the bound is 3 x flops over the TF32 peak; the bounds

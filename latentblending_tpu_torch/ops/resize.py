@@ -76,11 +76,10 @@ def area_weights(in_hw: tuple[int, int], out_hw: tuple[int, int]) -> tuple[np.nd
     return build(h0, h), build(w0, w)
 
 
-def resize_area(img, height: int, width: int, device="cpu") -> torch.Tensor:
-    """Image [H0, W0, C] (numpy or tensor) → [height, width, C] on `device`,
-    as cv2.resize(img, (width, height), INTER_AREA) gives it: uint8 in,
-    uint8 out; any other dtype in, float32 out (unrounded)."""
-    x = torch.as_tensor(np.ascontiguousarray(img) if isinstance(img, np.ndarray) else img, device=device)
+def resize_area(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Image [H0, W0, C] → [height, width, C] on x's device, as
+    cv2.resize(img, (width, height), INTER_AREA) gives it: uint8 in, uint8
+    out; any other dtype in, float32 out (unrounded)."""
     if x.ndim != 3:
         raise ValueError(f"resize_area takes an [H, W, C] image, got shape {tuple(x.shape)}")
     h0, w0, c = x.shape

@@ -378,11 +378,9 @@ class SDXLHolder:
         holder's dtype. An image of another size is resized on the device
         with OpenCV's INTER_AREA rule (ops/resize.py), where the JAX package
         calls cv2.resize on the host. The VAE encodes in vae_dtype."""
-        img = np.asarray(image)
-        if img.shape[:2] != (self.height_img, self.width_img):
-            x = resize_area(img, self.height_img, self.width_img, device=self.device)
-        else:
-            x = torch.as_tensor(np.ascontiguousarray(img), device=self.device)
+        x = torch.as_tensor(np.ascontiguousarray(np.asarray(image)), device=self.device)
+        if tuple(x.shape[:2]) != (self.height_img, self.width_img):
+            x = resize_area(x, self.height_img, self.width_img)
         x = x.to(torch.float32)[None] / 255.0 * 2.0 - 1.0
         mean, _ = self.vae.encode(x.permute(0, 3, 1, 2).contiguous())
         return (mean * self.spec.vae.scaling_factor).permute(0, 2, 3, 1).contiguous().to(self.dtype)

@@ -154,9 +154,14 @@ def test_bf16_vae_matches_jax_bf16_vae(holders):
     JAX package's own bf16 effect: the port's bf16 result may lie at most
     twice as far from JAX's bf16 result as that lies from JAX's f32 one
     (decode in [-1,1]: measured 0.041 against a bound of 2 × 0.034;
-    image2latent the same). The uint8 conversions of the same bf16 images:
-    RGB within 1 and I420 within 2 of JAX's (the port converts in float32,
-    JAX rounds to bf16 after every op and saturates at 255)."""
+    image2latent 0.0059 against 2 × 0.0044). That bound alone would pass a
+    VAE that computed in f32, so the port's bf16 result must also lie at
+    least half that bf16 effect away from the port's own f32 result
+    (measured 0.034 and 0.0041), where an f32 computation rounded to bf16
+    at its output lies within half a bf16 step (at most 0.002 in [-1,1];
+    0.0005 on these latents). The uint8 conversions of the same bf16
+    images: RGB within 1 and I420 within 2 of JAX's (the port converts in
+    float32, JAX rounds to bf16 after every op and saturates at 255)."""
     jdh32, tdh32 = holders
     jdh = JHolder("tiny-turbo", jdh32.params, dtype=jnp.float32, vae_dtype=jnp.bfloat16)
     tdh = port_holder_from_jax(jdh, "tiny-turbo", vae_dtype=torch.bfloat16)
@@ -168,8 +173,11 @@ def test_bf16_vae_matches_jax_bf16_vae(holders):
     want = np.asarray(jdh.decode_to_pm1_batched(jnp.asarray(lat)), np.float32)
     want32 = np.asarray(jdh32.decode_to_pm1_batched(jnp.asarray(lat)), np.float32)
     got = tdh.decode_to_pm1_batched(torch.from_numpy(lat))
+    got32 = tdh32.decode_to_pm1_batched(torch.from_numpy(lat)).numpy()
     assert got.dtype == torch.bfloat16 and got.shape == (5, 128, 128, 3)
-    assert np.abs(got.float().numpy() - want).max() <= 2 * np.abs(want - want32).max()
+    effect = np.abs(want - want32).max()
+    assert np.abs(got.float().numpy() - want).max() <= 2 * effect
+    assert np.abs(got.float().numpy() - got32).max() >= effect / 2
 
     same = jnp.asarray(got.float().numpy(), jnp.bfloat16)
     rgb_j = np.asarray(jdh.to_uint8_device(same)).astype(int)
@@ -182,4 +190,29 @@ def test_bf16_vae_matches_jax_bf16_vae(holders):
     enc32 = np.asarray(jdh32.image2latent(img), np.float32)
     got_enc = tdh.image2latent(img)
     assert got_enc.dtype == torch.float32  # the UNet's dtype
-    assert np.abs(got_enc.numpy() - enc).max() <= 2 * np.abs(enc - enc32).max()
+    effect = np.abs(enc - enc32).max()
+    assert np.abs(got_enc.numpy() - enc).max() <= 2 * effect
+    assert np.abs(got_enc.numpy() - tdh32.image2latent(img).numpy()).max() >= effect / 2
+
+
+def test_bf16_vae_runs_every_conv_and_linear_in_bf16(holders):
+    """With vae_dtype=bfloat16 every convolution and linear layer of the
+    port's VAE takes and returns bf16 tensors, in decode and in encode, and
+    each of them runs: nothing is upcast to f32 between the norms."""
+    jdh32, _ = holders
+    tdh = port_holder_from_jax(jdh32, "tiny-turbo", vae_dtype=torch.bfloat16)
+    layers = {m for m in tdh.vae.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))}
+    seen = {}
+
+    def hook(mod, args, out):
+        seen.setdefault(mod, set()).add((args[0].dtype, out.dtype))
+
+    handles = [m.register_forward_hook(hook) for m in layers]
+    try:
+        tdh.decode_to_pm1_batched(torch.from_numpy(np.random.default_rng(12).normal(size=(2, 16, 16, 4)).astype(np.float32)))
+        tdh.image2latent(_img(7))
+    finally:
+        for h in handles:
+            h.remove()
+    assert set(seen) == layers
+    assert set().union(*seen.values()) == {(torch.bfloat16, torch.bfloat16)}

@@ -189,8 +189,8 @@ def test_kernels_match_plain_versions_on_gpu():
     path's shapes (per-level and fused), SDXL-base 1024²'s, and one peaked
     case each (q scaled by 4), with the bounds of chip_smoke.py: K1 bf16
     2e-2 / f32 1e-5 (and exact at fractions 0 and 1), K2 2e-2 abs vs f32,
-    K3 1e-4 relative; K2 in f32 as K3, K3 in bf16 as K2; a head dim and
-    dtype with no kernel raises."""
+    K3 1e-4 relative; K2 in f32 as K3; K3 in bf16 1e-2 relative; a head
+    dim and dtype with no kernel raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -245,7 +245,8 @@ def test_kernels_match_plain_versions_on_gpu():
         n = tattn.launches_vae_bf16
         got = tattn.flash_attention(q, k, v).float()
         assert tattn.launches_vae_bf16 == n + 1
-        assert (got - tattn.attention_reference(q.float(), k.float(), v.float())).abs().max().item() <= 2e-2, shape
+        want = tattn.attention_reference(q.float(), k.float(), v.float())
+        assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item(), shape
     with pytest.raises(TypeError):
         tattn.flash_attention(q.half(), k.half(), v.half())  # no d=512 fp16 kernel
     with pytest.raises(ValueError):

@@ -33,7 +33,7 @@ def _images(h: int, w: int, seed: int):
 def test_resize_area_matches_cv2(in_hw, out_hw):
     for img in _images(*in_hw, seed=sum(in_hw)):
         want = cv2.resize(img, out_hw[::-1], interpolation=cv2.INTER_AREA)
-        got = resize_area(img, *out_hw)
+        got = resize_area(torch.from_numpy(img), *out_hw)
         assert got.dtype == torch.uint8 and tuple(got.shape) == out_hw + (3,)
         assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
 
@@ -44,7 +44,7 @@ def test_resize_area_integer_shrink_is_exact(in_hw, out_hw):
     At other even cell sizes cv2 may round a half to even instead."""
     for img in _images(*in_hw, seed=1):
         want = cv2.resize(img, out_hw[::-1], interpolation=cv2.INTER_AREA)
-        np.testing.assert_array_equal(resize_area(img, *out_hw).numpy(), want)
+        np.testing.assert_array_equal(resize_area(torch.from_numpy(img), *out_hw).numpy(), want)
 
 
 def test_area_weights_rows_sum_to_one_and_float_input_stays_unrounded():
@@ -55,8 +55,18 @@ def test_area_weights_rows_sum_to_one_and_float_input_stays_unrounded():
             assert (m >= 0).all()
             np.testing.assert_allclose(m.sum(axis=1), 1.0, atol=1e-12)
     img = np.random.default_rng(2).uniform(0, 255, (37, 91, 3)).astype(np.float32)
-    got = resize_area(img, 128, 128)
+    got = resize_area(torch.from_numpy(img), 128, 128)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), cv2.resize(img, (128, 128), interpolation=cv2.INTER_AREA), atol=0.6)
     with pytest.raises(ValueError):
-        resize_area(img[..., 0], 64, 64)
+        resize_area(torch.from_numpy(img[..., 0]), 64, 64)
+
+
+def test_resize_area_follows_its_input_device():
+    """The op has no device of its own: the output lies where the input
+    does (a tensor on the card is resized on the card), and its weights
+    follow it there."""
+    img = torch.from_numpy(_images(300, 50, seed=3)[0])
+    assert resize_area(img, 128, 128).device == img.device
+    meta = resize_area(img.to("meta"), 128, 128)
+    assert meta.device.type == "meta" and tuple(meta.shape) == (128, 128, 3) and meta.dtype == torch.uint8
