@@ -9,7 +9,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
 1. prints the card (nvidia-smi name and power limit) and the TF32 switches;
 2. builds the hand-written CUDA kernels from latentblending_tpu_torch/csrc
    and prints the build time, ptxas's registers/spills per kernel and the
-   tensor-core instruction counts of the built SASS;
+   tensor-core and local-memory instruction counts of the built SASS; it
+   fails unless K3 bf16 (attention_d512_bf16: wgmma and TMA over a 2-CTA
+   cluster) has HGMMA, no HMMA and no spill loads or stores;
 3. runs each kernel at the shapes of the SDXL-Turbo 512² main path — the
    per-level and the fused transition — and of the SDXL-base 1024² paths,
    against its plain PyTorch version on the same inputs: K1 slerp_rows at
@@ -20,8 +22,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
    batch [20,4096,10,64]) plus a peaked case (q scaled by 4); K2 in f32 at
    [12|2,1024,10,64] and [10,…] peaked, K3 in bf16 at [4|8|1,4096,1,512],
-   [1,16384,1,512] and [2,…] peaked; the K2/K3 wrapper's refusals (no
-   kernel for fp16, one head at d=512).
+   [1,16384,1,512], [2,…] peaked and [1,192,1,512] (three key tiles); the
+   K2/K3 wrapper's refusals (no kernel for fp16, one head at d=512).
    The f32 kernels are held to K3_REL_BOUND, K2 bf16 to K2_ABS_BOUND and
    K3 bf16 to K3_BF16_REL_BOUND.
    For each case it prints the max abs/rel error, the kernel's device time
@@ -126,22 +128,45 @@ def _card_state() -> str:
     ).stdout.strip()
 
 
-def _print_sass_counts(lib) -> None:
-    """Tensor-core instructions per kernel in the built library's SASS
-    (cuobjdump from the CUDA toolkit; informational)."""
+def _opcode(instruction: str) -> str:
+    """The opcode of a SASS instruction ("@P0 LDL.64 R2, [R1] ;" -> "LDL")."""
+    return next((t for t in instruction.split() if not t.startswith("@")), "").split(".")[0]
+
+
+def _print_sass_counts(lib) -> dict:
+    """Tensor-core and local-memory instructions per kernel in the built
+    library's SASS (cuobjdump from the CUDA toolkit), printed and returned
+    as {function name: {"instructions", "HGMMA", "HMMA", "local"}}; "local"
+    counts LDL/STL, the loads and stores of spilled registers."""
     from latentblending_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(os.path.realpath(_build.find_nvcc())), "cuobjdump")
     if not os.path.isfile(cuobjdump):
-        print("sass: cuobjdump not found", flush=True)
-        return
+        raise RuntimeError(f"sass: {cuobjdump} not found")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=120).stdout
+    counts = {}
     for section in sass.split("Function : ")[1:]:
         lines = section.splitlines()
         # instruction lines read "/*addr*/  OPCODE ...;", encoding lines "/* 0x... */"
         ops = [ln.split("*/", 1)[1].strip() for ln in lines[1:] if ln.strip().startswith("/*") and ";" in ln]
-        print(f"sass {lines[0].strip()}: {len(ops)} instructions, HGMMA {sum('HGMMA' in o for o in ops)}, "
-              f"HMMA {sum('HMMA' in o for o in ops)}", flush=True)
+        c = {"instructions": len(ops), "HGMMA": sum("HGMMA" in o for o in ops), "HMMA": sum("HMMA" in o for o in ops),
+             "local": sum(_opcode(o) in ("LDL", "STL") for o in ops)}
+        counts[lines[0].strip()] = c
+        print(f"sass {lines[0].strip()}: {c['instructions']} instructions, HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
+              f"local {c['local']}", flush=True)
+    return counts
+
+
+def _check_wgmma_sass(counts: dict, kernel: str) -> None:
+    """`kernel` (a substring of its function name) runs its products on
+    wgmma only (HGMMA > 0, HMMA = 0) and spills nothing (no LDL/STL)."""
+    found = {name: c for name, c in counts.items() if kernel in name}
+    if not found:
+        raise AssertionError(f"sass: no function named like {kernel}")
+    for name, c in found.items():
+        if c["HGMMA"] == 0 or c["HMMA"] or c["local"]:
+            raise AssertionError(f"sass {name}: expected HGMMA > 0, HMMA = 0 and no local memory, got {c}")
+    print(f"sass {kernel}: wgmma only, no spills", flush=True)
 
 
 # published H100 SXM peaks (NVIDIA's data sheet, dense): device memory rate,
@@ -513,8 +538,9 @@ def kernel_phases(torch) -> dict:
     # per-level stems' 10 peaked); K3 in bf16 (a bf16 VAE: fused and
     # per-level decode chunks 4, 8 and 2, the encode's 1, the 1024² decode)
     k2_f32_cases = [((12, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
+    # (+ three key tiles: the kernel's peeled last tile after two loop steps)
     k3_bf16_cases = [((4, 4096, 1, 512), 1.0), ((8, 4096, 1, 512), 1.0), ((1, 4096, 1, 512), 1.0),
-                     ((1, 16384, 1, 512), 1.0), ((2, 4096, 1, 512), 4.0)]
+                     ((1, 16384, 1, 512), 1.0), ((2, 4096, 1, 512), 4.0), ((1, 192, 1, 512), 1.0)]
     res["K2_f32"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k2_f32_cases]
     res["K3_bf16"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k3_bf16_cases]
     _attention_refusals(torch, g)
@@ -1030,7 +1056,7 @@ def _kernels_line(kres: dict, counts: dict) -> list:
                    "latentblending_tpu/models/layers.py:192"),
         "K3": ("attention_d512_f32 (3xTF32 mma.sync, 2-CTA cluster)",
                "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
-        "K3_bf16": ("attention_d512_bf16 (bf16 mma.sync, 2-CTA cluster)",
+        "K3_bf16": ("attention_d512_bf16 (wgmma, TMA, 2-CTA cluster)",
                     "latentblending_tpu_torch/csrc/attention_d512_bf16.cu", "latentblending_tpu/models/layers.py:373"),
     }
     kernels = []
@@ -1071,7 +1097,7 @@ def main() -> int:
     lib = _build.build(verbose=True)
     print(f"kernels built in {time.perf_counter() - t0:.3f} s -> {os.path.relpath(lib, ROOT)}", flush=True)
     _build.library()
-    _print_sass_counts(lib)
+    _check_wgmma_sass(_print_sass_counts(lib), "attention_d512_bf16")
 
     kres = kernel_phases(torch)
     small_input_check(torch)

@@ -10,39 +10,66 @@
 //
 // What bounds it on the H100: the tensor cores. At [4, 4096, 1, 512] it
 // does 137 GFLOP on 67 MB, ~2000 flop per byte, far above the bf16 ridge
-// (~295): the bound is flops over the 989 TFLOP/s bf16 peak.
+// (~295): the bound is flops over the 989 TFLOP/s bf16 peak, which only
+// wgmma reaches.
 //
-// Design: the structure of the f32 kernel with one bf16 mma.sync pass in
-// place of its three TF32 passes. A 64-row query tile at d = 512 keeps a
-// 64 x 512 f32 O accumulator (128 KB), more than one CTA's registers, so d
-// is split across a 2-CTA thread-block cluster; CTA r owns columns
+// Design: a flash-attention forward on warpgroup MMA over a 2-CTA
+// thread-block cluster that splits d. A 64-row query tile at d = 512 keeps
+// a 64 x 512 f32 O accumulator (256 registers a thread for one
+// warpgroup), so CTA r of the cluster owns output columns
 // [256r, 256r + 256):
-//   1. it keeps its half of the Q tile in shared memory (32 KB, rows
-//      padded against bank conflicts) for the whole sweep;
-//   2. K/V tiles of 64 rows stream by cp.async in 64 x 64 chunks (this
-//      CTA's 4 K chunks, then its 4 V chunks) through a ring of NS = 4
-//      stages, so the next chunks load while the current one is computed;
-//   3. it computes its partial S = Q_r K_r^T (64 x 64) over its 256
-//      columns with mma.sync m16n8k16 (bf16 in, f32 accumulate), operand
-//      fragments loaded as 32-bit words;
-//   4. each CTA writes its partial S into its own and its partner's shared
-//      memory (st.shared::cluster), one cluster barrier per tile; both then
-//      hold rank 0's + rank 1's partial, summed in that order, and run the
-//      same online softmax (4 threads per row, exp2 with log2(e)/sqrt(d)
-//      folded in). P is rounded to bf16 into its own buffer (the row sum
-//      keeps the unrounded values, as in the d = 64 kernel), the row
-//      rescale factor beside it;
-//   5. each CTA does P V for its own 256 output columns: V's B fragments
-//      come from its row-major chunk by ldmatrix.trans; O (64 x 256 f32)
-//      lives in registers, 64 per thread over 256 threads.
-// The exchange buffers are double-buffered by tile parity, so one cluster
-// barrier per tile suffices. A chunk of 2 images gives 256 CTAs.
-// Simple and right first: wgmma and TMA are later work.
+//   1. one producer warp issues every load by TMA in the 128-byte swizzle:
+//      the tensor is read as [B*L, 8, 64] and each load is one 64-column
+//      atom of 64 rows (8 KB); CTA r loads atoms 4r..4r+3. Its half of the
+//      Q tile (32 KB) loads once; K and V tiles of 64 keys stream through
+//      two rings of two stages, each with full (TMA bytes) and empty
+//      (consumer release) mbarriers;
+//   2. one consumer warpgroup computes its partial scores S_r = Q_r K_r^T
+//      (64 x 64, f32) over its 256 columns: 4 atoms x 4 k16 steps of
+//      wgmma m64n64k16, both operands K-major in shared memory;
+//   3. the exchange needs no cluster-wide barrier. Each thread writes its
+//      32 partial scores into the partner's receive buffer in its own
+//      fragment order ([value][thread], 16 KB, double-buffered by tile
+//      parity) with st.async, which counts the bytes on the partner's
+//      mbarrier as a TMA load does (release at cluster scope, no fence);
+//      one receiving thread posts the 16 KB it expects, and the receiver
+//      waits on its own barrier with acquire at cluster scope. Thread t
+//      holds the same (row, key) positions in both CTAs, and a + b == b + a
+//      in f32, so both CTAs hold bit-equal scores and compute the same P,
+//      row max and row sum;
+//   4. the online softmax runs on the accumulator registers (exp2 with
+//      log2(e)/sqrt(d) folded in, row max by quad shuffles); P is rounded
+//      to bf16 as the A operand of P V, the row sum keeps the unrounded
+//      values;
+//   5. O += P V by wgmma, 4 output atoms x 4 k16 steps of keys, V read
+//      MN-major with the transpose bit; O (64 x 256 f32) is 128 registers
+//      a thread; it is scaled by 1/l and written once as bf16;
+//   6. the next tile's S product is issued before this tile's exchange
+//      wait and softmax, which run under it; its partial is sent as soon
+//      as it completes, while P V runs. The last tile is peeled off, so no
+//      wgmma group is issued under a run-time condition (ptxas serialized
+//      every wgmma of the loop when one was).
+// Measured against waiting on each product in turn, and against an
+// exchange by plain DSMEM stores and one remote mbarrier arrive per thread
+// (release at cluster scope), this measured faster at [4, 4096, 1, 512]
+// and [1, 4096, 1, 512] (PERF.md, K3 bf16 findings).
+//
+// Why the double-buffered exchange is safe: a CTA writes slot j & 1 of its
+// partner for tile j only after it has received the partner's tile j - 1,
+// which the partner sent after reading its slot (j - 2) & 1 == j & 1 (each
+// thread reads tile j's slot before it sends tile j + 1, and the release
+// of its send orders that read before it). For the same reason a barrier
+// phase is never completed into before its previous phase was waited for,
+// and the tx bytes of tile j that land before the receiver posts them
+// count into tile j's phase.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_ptx.cuh"
 
@@ -51,252 +78,269 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 512;
-constexpr int kDH = kD / 2;       // columns per CTA of the cluster
-constexpr int kBQ = 64;           // query rows per cluster
-constexpr int kBK = 64;           // key rows per tile
-// 8 warps: 4 row groups of 16 rows x 2 column groups of 32 columns of S
-// and of each 64-column O chunk; the softmax runs 4 threads per row.
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kNT = 4;    // n8-tiles per warp (S and each O chunk)
-constexpr int kTPR = 4;   // softmax threads per row
-constexpr int kCPT = 16;  // softmax columns per thread
-// padded row strides (bf16 elements): 132 and 36 words, 4 mod 32, keep a
-// fragment's 32 lanes (word 4*row + col) and ldmatrix's 8 rows of 16 bytes
-// on distinct banks
-constexpr int kQS = kDH + 8;
-constexpr int kCS = 64 + 8;
-constexpr int kXS = kBK + 4;      // f32 exchange rows
-constexpr int kSlot = 64 * kCS;   // one ring slot holds a 64 x 64 K or V chunk
+constexpr int kAtoms = 4;                         // 64-column atoms per CTA: its 256 columns
+constexpr int kBQ = 64;                           // query rows per cluster
+constexpr int kBK = 64;                           // keys per tile
+constexpr int kStages = 2;                        // K and V ring stages
+constexpr int kConsumers = 128;                   // one warpgroup
+constexpr int kThreads = kConsumers + 32;         // + one producer warp
+constexpr int kAtomBytes = 64 * 128;              // 64 rows x 64 bf16 columns
+constexpr int kTileBytes = kAtoms * kAtomBytes;   // a CTA's half of a 64-row tile: 32 KB
+constexpr int kXBytes = 32 * kConsumers * 4;      // one tile's partial scores: 16 KB
 
-template <int NS>
-struct K3B16Smem {  // byte offsets, each a multiple of 16
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kRing = kQ + sizeof(bf16) * kBQ * kQS;
-  static constexpr size_t kP = kRing + sizeof(bf16) * NS * kSlot;
-  static constexpr size_t kX = kP + sizeof(bf16) * kBQ * kCS;       // [tile parity][rank][kBQ][kXS]
-  static constexpr size_t kAlpha = kX + sizeof(float) * 2 * 2 * kBQ * kXS;
-  static constexpr size_t kInv = kAlpha + sizeof(float) * kBQ;
-  static constexpr size_t kBytes = kInv + sizeof(float) * kBQ;
-  static_assert(kRing % 16 == 0 && kP % 16 == 0 && kX % 16 == 0, "16-byte aligned regions");
+struct Smem {  // byte offsets from a 1024-byte aligned base
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kX = kV + kStages * kTileBytes;
+  static constexpr int kBar = kX + 2 * kXBytes;
+  // q, kfull[kStages], vfull[kStages], kempty[kStages], vempty[kStages], xfull[2]
+  static constexpr int kNumBars = 1 + 4 * kStages + 2;
+  static constexpr size_t kBytes = 1024 + kBar + 8 * kNumBars;  // + alignment slack
   static_assert(kBytes <= 232448, "shared memory of one CTA");
 };
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int NS>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
-attention_d512_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                           bf16* __restrict__ out, int L, float scale_log2) {
-  using S = K3B16Smem<NS>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + S::kQ);
-  bf16* ring = reinterpret_cast<bf16*>(smem + S::kRing);
-  bf16* sP = reinterpret_cast<bf16*>(smem + S::kP);
-  float* xbuf = reinterpret_cast<float*>(smem + S::kX);
-  float* sAlpha = reinterpret_cast<float*>(smem + S::kAlpha);
-  float* sInv = reinterpret_cast<float*>(smem + S::kInv);
+attention_d512_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int L,
+                           float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  // the same offset in both CTAs, so map_shared_rank finds the partner's buffers
+  uint8_t* smem = smem_raw + ((1024 - (lb::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem + Smem::kQ;
+  uint8_t* sK = smem + Smem::kK;
+  uint8_t* sV = smem + Smem::kV;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + Smem::kBar);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + kStages;
+  uint64_t* kempty = vfull + kStages;
+  uint64_t* vempty = kempty + kStages;
+  uint64_t* xfull = vempty + kStages;
 
   const uint32_t rank = lb::cluster_ctarank();
-  const uint32_t peer = rank ^ 1u;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
   const int q0 = (blockIdx.x >> 1) * kBQ;
-  const int64_t base = (int64_t)blockIdx.y * L * kD;
-  const int col0 = rank * kDH;
+  const int row0 = blockIdx.y * L;  // first row of this batch in the [B*L] sequence axis
   const int ntiles = L / kBK;
-  const int nchunks = 8 * ntiles;
 
-  // this CTA's half of the Q tile (512 bytes a row): one cp.async group
-  for (int x = tid; x < kBQ * kDH / 8; x += kThreads) {
-    const int row = x / (kDH / 8), seg = x % (kDH / 8);
-    lb::cp_async16(sQ + row * kQS + 8 * seg, q + base + (int64_t)(q0 + row) * kD + col0 + 8 * seg);
+  if (tid == 0) {
+    lb::mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      lb::mbar_init(&kfull[s], 1);
+      lb::mbar_init(&vfull[s], 1);
+      lb::mbar_init(&kempty[s], kConsumers);
+      lb::mbar_init(&vempty[s], kConsumers);
+    }
+    lb::mbar_init(&xfull[0], 1);  // the receiver's expect_tx; the partner's bytes complete it
+    lb::mbar_init(&xfull[1], 1);
+    lb::fence_mbar_init();
   }
-  lb::cp_async_commit();
-  // chunk n of the stream: tile n/8; K column chunk n%8 (< 4) or V column chunk n%8 - 4
-  auto load_chunk = [&](int n) {
-    if (n < nchunks) {
-      const int tile = n / 8, i = n % 8;
-      const bf16* src = (i < 4 ? k : v) + base + (int64_t)tile * kBK * kD + col0 + 64 * (i % 4);
-      bf16* dst = ring + (n % NS) * kSlot;
-      for (int x = tid; x < 64 * 8; x += kThreads) {
-        const int row = x / 8, seg = x % 8;
-        lb::cp_async16(dst + row * kCS + 8 * seg, src + (int64_t)row * kD + 8 * seg);
+  lb::cluster_sync();  // both CTAs' barriers are initialised before any load or remote arrive
+
+  if (tid >= kConsumers) {
+    // producer warp: one thread issues every TMA load
+    if (tid == kConsumers) {
+      lb::mbar_expect_tx(qbar, kTileBytes);
+      for (int a = 0; a < kAtoms; ++a) lb::tma_load_3d(sQ + a * kAtomBytes, &tq, qbar, 0, kAtoms * rank + a, row0 + q0);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t parity = (j / kStages - 1) & 1;  // the release of tile j - kStages
+        if (j >= kStages) lb::mbar_wait(&kempty[s], parity);
+        lb::mbar_expect_tx(&kfull[s], kTileBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          lb::tma_load_3d(sK + s * kTileBytes + a * kAtomBytes, &tk, &kfull[s], 0, kAtoms * rank + a, row0 + j * kBK);
+        if (j >= kStages) lb::mbar_wait(&vempty[s], parity);
+        lb::mbar_expect_tx(&vfull[s], kTileBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          lb::tma_load_3d(sV + s * kTileBytes + a * kAtomBytes, &tv, &vfull[s], 0, kAtoms * rank + a, row0 + j * kBK);
       }
     }
-    lb::cp_async_commit();  // empty groups past the end keep the count uniform
-  };
-  for (int n = 0; n < NS - 1; ++n) load_chunk(n);
-  lb::cluster_sync();  // the partner is running before any store into its shared memory
+    __syncwarp();
+  } else {
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const uint32_t peer = rank ^ 1u;
+    const uint32_t x_peer = lb::map_shared_rank(lb::smem_u32(smem + Smem::kX), peer);
+    const uint32_t xbar_peer = lb::map_shared_rank(lb::smem_u32(xfull), peer);
 
-  const int wr = 16 * (warp % 4);       // this warp's 16 rows of the tile
-  const int wc = 8 * kNT * (warp / 4);  // its 8*kNT columns of S, and of each 64-column O chunk
-  const int srow = tid / kTPR;          // softmax: kTPR threads per row, kCPT columns each
-  const int spart = tid % kTPR;
-  float m_run = -INFINITY;  // running row max (log2 units), same in the threads of a row
-  float l_run = 0.f;        // this thread's part of the running row sum
-  // ldmatrix.trans row of this lane for a 16-key x 16-column block of V:
-  // matrices (keys 0-7 | 8-15) x (columns 0-7 | 8-15)
-  const int lm_key = (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int lm_col = 8 * (lane >> 4);
+    float o[kAtoms][32];
+#pragma unroll
+    for (int c = 0; c < kAtoms; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, in log2 units
+    float l[2] = {0.f, 0.f};              // this thread's part of the running row sum
+    float sa[32], sb[32];                 // partial scores of two consecutive tiles
 
-  float o[4][kNT][4];
+    // S_j partial = Q_r K_r^T over this CTA's 256 columns, one commit group
+    auto issue_s = [&](int j, float (&acc)[32]) {
+      const int s = j % kStages;
+      const uint32_t q_addr = lb::opaque(lb::smem_u32(sQ));
+      const uint32_t k_addr = lb::opaque(lb::smem_u32(sK) + s * kTileBytes);
+      lb::mbar_wait(&kfull[s], (j / kStages) & 1);
+      lb::wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+      for (int a = 0; a < kAtoms; ++a)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+        for (int kk = 0; kk < 4; ++kk)  // +32 bytes along the swizzled row per k16 step
+          lb::wgmma_m64n64k16_ss(acc, lb::sw128_desc(q_addr + a * kAtomBytes + 32 * kk),
+                                 lb::sw128_desc(k_addr + a * kAtomBytes + 32 * kk), a | kk);
+      lb::wgmma_commit();
+    };
+    // after tile j's S group completed: free its K stage, send the partial
+    auto send = [&](int j, float (&acc)[32]) {
+      lb::fence_regs(acc);
+      lb::mbar_arrive(&kempty[j % kStages]);
+      const uint32_t dst = x_peer + (j & 1) * kXBytes + tid * 16;
+      const uint32_t bar = xbar_peer + 8 * (j & 1);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) o[c][nt][r] = 0.f;
+      for (int i = 0; i < 8; ++i)
+        lb::st_async_v4(dst + i * kConsumers * 16, acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3], bar);
+    };
 
-  for (int j = 0; j < ntiles; ++j) {
-    float* xb = xbuf + (j & 1) * 2 * kBQ * kXS;  // [rank][kBQ][kXS]: the partial scores
-    float s[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+    lb::mbar_wait(qbar, 0);
+    issue_s(0, sa);
+    lb::wgmma_wait<0>();
+    send(0, sa);
 
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int n = 8 * j + i;
-      lb::cp_async_wait<NS - 2>();  // chunk n (and Q) have landed
-      __syncthreads();              // ... for every thread; slot (n-1)%NS is free
-      load_chunk(n + NS - 1);
-      const bf16* ch = ring + (n % NS) * kSlot;
+    // one key tile; has_next (std::true_type or std::false_type): a tile
+    // follows, so this step also issues and sends the next S (a constant,
+    // so no wgmma group is issued under a run-time condition)
+    auto step = [&](auto has_next, int j, float (&cur)[32], float (&nxt)[32]) {
+      constexpr bool more = decltype(has_next)::value;
+      if constexpr (more) issue_s(j + 1, nxt);
 
-      if (i < 4) {
-        // partial S += Q[:, 64i : 64i+64] K_chunk^T in 4 k16-steps
+      // the full scores: this CTA's partial + the partner's (one thread
+      // posts the tile's bytes; the partner's may land first)
+      if (tid == 0) lb::mbar_expect_tx(&xfull[j & 1], kXBytes);
+      lb::mbar_wait_cluster(&xfull[j & 1], (j >> 1) & 1);
+      const float4* recv = reinterpret_cast<const float4*>(smem + Smem::kX + (j & 1) * kXBytes) + tid;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const bf16* qa = sQ + (wr + g) * kQS + 64 * i + 16 * kk + 2 * t;
-          const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * kQS), ld32(qa + 8), ld32(qa + 8 * kQS + 8)};
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            const bf16* kb = ch + (wc + 8 * nt + g) * kCS + 16 * kk + 2 * t;
-            lb::mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
-          }
-        }
-        if (i == 3) {
-          // exchange the partial scores: into slot [rank] here and in the partner
-          float* mine = xb + rank * kBQ * kXS;
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float* p = mine + (wr + g + 8 * e) * kXS + wc + 8 * nt + 2 * t;
-              *reinterpret_cast<float2*>(p) = make_float2(s[nt][2 * e], s[nt][2 * e + 1]);
-              lb::st_cluster_v2(lb::map_shared_rank(lb::smem_u32(p), peer), s[nt][2 * e], s[nt][2 * e + 1]);
-            }
-          lb::cluster_sync();
-
-          // online softmax on the full scores (rank 0 + rank 1, the same sum in both CTAs)
-          const float* x0 = xb + srow * kXS + kCPT * spart;
-          const float* x1 = x0 + kBQ * kXS;
-          float sv[kCPT];
-#pragma unroll
-          for (int c4 = 0; c4 < kCPT / 4; ++c4) {
-            const float4 a = *reinterpret_cast<const float4*>(x0 + 4 * c4);
-            const float4 b = *reinterpret_cast<const float4*>(x1 + 4 * c4);
-            sv[4 * c4 + 0] = a.x + b.x;
-            sv[4 * c4 + 1] = a.y + b.y;
-            sv[4 * c4 + 2] = a.z + b.z;
-            sv[4 * c4 + 3] = a.w + b.w;
-          }
-          float mx = sv[0];
-#pragma unroll
-          for (int c = 1; c < kCPT; ++c) mx = fmaxf(mx, sv[c]);
-#pragma unroll
-          for (int w = 1; w < kTPR; w *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-          const float m_new = fmaxf(m_run, mx * scale_log2);
-          const float alpha = exp2f(m_run - m_new);  // 0 on the first tile
-          m_run = m_new;
-          float sum = 0.f;
-          uint32_t pk[kCPT / 2];
-#pragma unroll
-          for (int c2 = 0; c2 < kCPT / 2; ++c2) {
-            const float p0 = exp2f(fmaf(sv[2 * c2], scale_log2, -m_new));
-            const float p1 = exp2f(fmaf(sv[2 * c2 + 1], scale_log2, -m_new));
-            sum += p0 + p1;
-            pk[c2] = pack_bf16(p0, p1);
-          }
-          uint4* pdst = reinterpret_cast<uint4*>(sP + srow * kCS + kCPT * spart);
-          pdst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-          pdst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
-          l_run = l_run * alpha + sum;
-          if (spart == 0) sAlpha[srow] = alpha;
-          // P and alpha are read after the next step's __syncthreads
-        }
-      } else {
-        const int c = i - 4;  // this CTA's output columns [64c, 64c + 64)
-        if (c == 0) {
-          const float a0 = sAlpha[wr + g], a1 = sAlpha[wr + g + 8];
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              o[cc][nt][0] *= a0;
-              o[cc][nt][1] *= a0;
-              o[cc][nt][2] *= a1;
-              o[cc][nt][3] *= a1;
-            }
-        }
-        // O[:, chunk c] += P V_chunk in 4 k16-steps of 16 keys
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const bf16* pa = sP + (wr + g) * kCS + 16 * kk + 2 * t;
-          const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * kCS), ld32(pa + 8), ld32(pa + 8 * kCS + 8)};
-#pragma unroll
-          for (int np = 0; np < kNT / 2; ++np) {
-            uint32_t b[4];  // B fragments of n8-tiles 2np (b[0], b[1]) and 2np + 1 (b[2], b[3])
-            lb::ldmatrix_x4_trans(b, ch + (16 * kk + lm_key) * kCS + wc + 16 * np + lm_col);
-            lb::mma_bf16(o[c][2 * np], a, b[0], b[1]);
-            lb::mma_bf16(o[c][2 * np + 1], a, b[2], b[3]);
-          }
-        }
+      for (int i = 0; i < 8; ++i) {
+        const float4 r = recv[i * kConsumers];
+        cur[4 * i] += r.x;
+        cur[4 * i + 1] += r.y;
+        cur[4 * i + 2] += r.z;
+        cur[4 * i + 3] += r.w;
       }
-    }
-  }
 
+      // online softmax on the accumulators. Register i holds row
+      // (lane/4 + 8*((i/2)%2)) of this warp's 16, key 8*(i/4) + 2*(lane%4) + i%2.
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int w = 1; w < kTPR; w *= 2) l_run += __shfl_xor_sync(0xffffffffu, l_run, w);
-  if (spart == 0) sInv[srow] = 1.f / l_run;
-  __syncthreads();
-  const float inv0 = sInv[wr + g], inv1 = sInv[wr + g + 8];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], cur[i]);
+      float alpha[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float inv = e ? inv1 : inv0;
-        bf16* dst = out + base + (int64_t)(q0 + wr + g + 8 * e) * kD + col0 + 64 * c + wc + 8 * nt + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(o[c][nt][2 * e] * inv, o[c][nt][2 * e + 1] * inv);
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        const float m_new = fmaxf(m[e], mx[e] * scale_log2);
+        alpha[e] = exp2f(m[e] - m_new);  // 0 on the first tile (m = -inf)
+        m[e] = m_new;
       }
+      float sum[2] = {0.f, 0.f};
+      uint32_t pa[4][4];  // P in bf16: the A fragments of the 4 k16 steps
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int e = (i >> 1) & 1;
+        const float p0 = exp2f(fmaf(cur[i], scale_log2, -m[e]));
+        const float p1 = exp2f(fmaf(cur[i + 1], scale_log2, -m[e]));
+        sum[e] += p0 + p1;
+        pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + sum[e];
+#pragma unroll
+      for (int c = 0; c < kAtoms; ++c) {
+        lb::fence_regs(o[c]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+      }
+
+      // O += P V: P from registers, V's atoms MN-major from shared memory
+      const int s = j % kStages;
+      const uint32_t v_addr = lb::opaque(lb::smem_u32(sV) + s * kTileBytes);
+      lb::mbar_wait(&vfull[s], (j / kStages) & 1);
+      lb::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < kAtoms; ++c)  // 16 keys of V per k16 step: 2048 bytes
+          lb::wgmma_m64n64k16_rs_tb(o[c], pa[kk], lb::sw128_desc(v_addr + c * kAtomBytes + 2048 * kk));
+      lb::wgmma_commit();
+
+      if constexpr (more) {
+        lb::wgmma_wait<1>();  // S_{j+1} done, P V may still run
+        send(j + 1, nxt);
+      }
+      lb::wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // P's registers stay live until the products that read them are done
+#pragma unroll
+        for (int w = 0; w < 4; ++w) asm volatile("" : "+r"(pa[kk][w])::"memory");
+      lb::mbar_arrive(&vempty[s]);
+    };
+    constexpr std::true_type next{};
+    constexpr std::false_type last{};
+    int j = 0;
+#pragma unroll 1
+    for (; j + 2 < ntiles; j += 2) {
+      step(next, j, sa, sb);
+      step(next, j + 1, sb, sa);
+    }
+    if (j + 1 < ntiles) {
+      step(next, j, sa, sb);
+      step(last, j + 1, sb, sa);
+    } else {
+      step(last, j, sa, sb);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+      inv[e] = 1.f / l[e];
+    }
+    const int r = q0 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int c = 0; c < kAtoms; ++c) {
+      lb::fence_regs(o[c]);
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t idx = (int64_t)(row0 + r + 8 * e) * kD + 256 * rank + 64 * c + 8 * n8 + 2 * (lane % 4);
+          *reinterpret_cast<__nv_bfloat162*>(out + idx) =
+              __floats2bfloat162_rn(o[c][4 * n8 + 2 * e] * inv[e], o[c][4 * n8 + 2 * e + 1] * inv[e]);
+        }
+    }
+  }
   lb::cluster_sync();  // no CTA leaves while its partner may still address its shared memory
 }
 
-template <int NS>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int L, int H, float scale,
            void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (H != 1 || L % kBQ != 0 || L % kBK != 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = attention_d512_bf16_kernel<NS>;
-  const int bytes = static_cast<int>(K3B16Smem<NS>::kBytes);
+  // [B*L, 512] read as [B*L, 8, 64]: boxes of one 64-column atom of 64 rows
+  CUtensorMap tq, tk, tv;
+  const int64_t rows = (int64_t)B * L;
+  if (!lb::make_map_sw128(&tq, q, rows, kD / 64, kBQ) || !lb::make_map_sw128(&tk, k, rows, kD / 64, kBK) ||
+      !lb::make_map_sw128(&tv, v, rows, kD / 64, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = attention_d512_bf16_kernel;
+  const int bytes = static_cast<int>(Smem::kBytes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(2 * (L / kBQ), B);  // the two CTAs of a cluster are neighbours in x
-  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), L, scale * 1.4426950408889634f);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, static_cast<bf16*>(out), L,
+                                                                        scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,5 +349,5 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int L,
 // K3 in bf16: VAE mid-block attention, one head of d = 512, bf16 in/out.
 extern "C" int lb_attention_fwd_d512_bf16(const void* q, const void* k, const void* v, void* out, int B, int L,
                                           int H, float scale, void* stream) {
-  return launch<4>(q, k, v, out, B, L, H, scale, stream);
+  return launch(q, k, v, out, B, L, H, scale, stream);
 }

@@ -203,39 +203,6 @@ attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 
 // ------------------------------------------------------------------- host
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the CUDA runtime (no -lcuda at link time)
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A [B*L, H, 64] bf16 tensor read in boxes of `rows` sequence rows of one head.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)B * (cuuint64_t)L};
-  const cuuint64_t strides[2] = {(cuuint64_t)kRowBytes, (cuuint64_t)H * kRowBytes};
-  const cuuint32_t box[3] = {(cuuint32_t)kD, 1, (cuuint32_t)rows};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BQ, int BK, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int L, int H, float scale,
            void* stream) {
@@ -243,7 +210,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int L,
   if (B <= 0 || L <= 0 || H <= 0) return 0;
   if (L % BQ != 0 || L % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, L, H, BQ) || !make_map(&tk, k, B, L, H, BK) || !make_map(&tv, v, B, L, H, BK))
+  const int64_t rows = (int64_t)B * L;
+  if (!lb::make_map_sw128(&tq, q, rows, H, BQ) || !lb::make_map_sw128(&tk, k, rows, H, BK) ||
+      !lb::make_map_sw128(&tv, v, rows, H, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = attention_d64_bf16_kernel<BQ, BK, STAGES>;
   cudaError_t err =

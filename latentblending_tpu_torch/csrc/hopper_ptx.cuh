@@ -1,7 +1,8 @@
 // Hand-written PTX helpers shared by the port's kernels (sm_90a):
-// mbarriers, TMA tile loads, cp.async, wgmma (bf16, 128-byte swizzle),
-// mma.sync TF32 with a hi/lo operand split, mma.sync bf16 with ldmatrix,
-// and thread-block-cluster shared memory. Header only; every function is inlined into its kernel.
+// mbarriers (local and across a cluster), TMA tile loads and their tensor
+// maps, cp.async, wgmma (bf16, 128-byte swizzle), mma.sync TF32 with a
+// hi/lo operand split, and thread-block-cluster shared memory. Header
+// only; every function is inlined into its kernel or launcher.
 #pragma once
 
 #include <cuda.h>
@@ -27,6 +28,27 @@ __device__ __forceinline__ void fence_mbar_init() {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: sees what another CTA of the
+// cluster released into the barrier (st_async_v4).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // Wait for the completion of the barrier's phase with this parity (the
@@ -56,6 +78,43 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---------------------------------------------------------- TMA maps (host)
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the CUDA runtime (no -lcuda at link time)
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major [rows, groups, 64] bf16 tensor read in boxes of `box_rows`
+// rows of one 64-column group: each box is box_rows x 128 bytes, written
+// to shared memory in the 128-byte swizzle that sw128_desc reads.
+inline bool make_map_sw128(CUtensorMap* map, const void* ptr, int64_t rows, int groups, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)groups, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {128, (cuuint64_t)groups * 128};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ------------------------------------------------------------------ cp.async
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -75,12 +134,28 @@ __device__ __forceinline__ void cp_async_wait() {
 // K-major operand that is the stride between 8-row groups (SBO, LBO is
 // unused); for an MN-major operand whose MN extent is one 128-byte atom it
 // is the stride between 8-row groups along K (and the unused MN repeat).
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) { return sw128_desc(smem_u32(tile)); }
+
+// x, opaque to the compiler: what is computed from it is not hoisted out
+// of the loop it is in (descriptors built from an opaque base at each use
+// cost an add, where hoisted ones would hold a register each).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+// Pins an accumulator's registers at this point of the program: the
+// compiler may not move reads or writes of them across it (place it after
+// a wgmma_wait and before a wgmma that an in-flight group must not see).
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
@@ -166,28 +241,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], float (&c)[NT][4],
   for (int n = 0; n < NT; ++n) mma_tf32(c[n], ahi, blo[n]);
 }
 
-// ------------------------------------------------------------ mma.sync bf16
-
-// D[16x8] += A[16x16] * B[16x8], bf16 in, f32 accumulate (row.col
-// fragments: a = bf16 pairs at rows g, g+8 and columns 2t, 2t+8; b = bf16
-// pairs at k rows 2t, 2t+8 of column g).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory, transposed: lanes 8i..8i+7
-// give the row addresses of matrix i, and register i of lane (4g + t)
-// holds elements (2t, g) and (2t + 1, g) of matrix i, the B fragment of
-// mma_bf16 for a row-major [k][n] operand.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
 // ------------------------------------------------------------------- clusters
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
@@ -213,6 +266,17 @@ __device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, uint32_t rank
 
 __device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a, float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// A store into another CTA of the cluster that counts its 16 bytes on
+// that CTA's mbarrier (`bar` from map_shared_rank) as a TMA load does,
+// releasing at cluster scope: no fence, and the receiver's
+// mbar_wait_cluster sees the data.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+               : "memory");
 }
 
 __device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {

@@ -25,8 +25,10 @@ never write the [B,H,L,L] logits, so memory stays O(L·tile):
 - K3 f32, csrc/attention_d512_f32.cu: 3xTF32 mma.sync, d split across a
   2-CTA cluster that exchanges partial scores through distributed shared
   memory; query and key tiles of 64 rows, one head only.
-- K3 bf16, csrc/attention_d512_bf16.cu: the same cluster split with one
-  bf16 mma.sync pass (P rounded to bf16 before P V).
+- K3 bf16, csrc/attention_d512_bf16.cu: the same cluster split on wgmma,
+  loads by TMA from a producer warp, the partial scores exchanged by
+  st.async into the partner's shared memory (P rounded to bf16 before
+  P V); query and key tiles of 64 rows, one head only.
 
 `flash_attention` takes CUDA tensors to the kernel (or raises) and CPU
 tensors to `attention_reference`; nothing falls back from one to the other.

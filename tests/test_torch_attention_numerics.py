@@ -16,8 +16,10 @@ each kernel does fits the bounds `chip_smoke.py` holds it to on the card:
 - K2 in f32 (csrc/attention_d64_f32.cu): K3's arithmetic at d=64 over
   64-key tiles, several heads. Bound: K3's, 1e-4 * max |f32 result|.
 - K3 in bf16 (csrc/attention_d512_bf16.cu): K2's arithmetic at d=512 over
-  64-key tiles (bf16 q/k/v, f32 scores, P rounded to bf16 before P V,
-  the row sum from the unrounded P). Bound: 1e-2 * max |f32 result|:
+  64-key tiles (bf16 q/k/v, P rounded to bf16 before P V, the row sum
+  from the unrounded P), with the scores as the kernel's 2-CTA cluster
+  forms them: two f32 partial scores over the d halves [0, 256) and
+  [256, 512), one per CTA, summed in f32. Bound: 1e-2 * max |f32 result|:
   relative, as K3 f32's, because at d=512 the outputs shrink as L grows
   (order 0.1 at L=4096), where K2's absolute 2e-2 would be too loose to
   fail a kernel that dropped a key tile.
@@ -96,12 +98,27 @@ def _per_head(fn, q, k, v):
     return out
 
 
-def k2_emulation(q, k, v, bk: int = K2_BK):
-    """K2's arithmetic on bf16 q/k/v [B, L, H, 64] → bf16; with bk=64 at
-    d=512, K3 bf16's."""
+def k2_emulation(q, k, v):
+    """K2's arithmetic on bf16 q/k/v [B, L, H, 64] → bf16."""
     q, k, v = q.float(), k.float(), v.float()
     fn = lambda q_, k_, v_: _online_attention(  # noqa: E731
-        q_, k_, v_, bk, lambda a, b: a @ b.T, lambda p, vt: p.bfloat16().float() @ vt)
+        q_, k_, v_, K2_BK, lambda a, b: a @ b.T, lambda p, vt: p.bfloat16().float() @ vt)
+    return _per_head(fn, q, k, v).bfloat16()
+
+
+def k3_bf16_emulation(q, k, v):
+    """K3 bf16's arithmetic on bf16 q/k/v [B, L, 1, 512] → bf16: per
+    K3_BK-key tile, the scores are the sum of two f32 partials over the d
+    halves (each CTA of the cluster computes one), P is rounded to bf16
+    before P V and the row sum keeps the unrounded P."""
+    q, k, v = q.float(), k.float(), v.float()
+    half = q.shape[-1] // 2
+
+    def scores(a, b):
+        return a[:, :half] @ b[:, :half].T + a[:, half:] @ b[:, half:].T
+
+    fn = lambda q_, k_, v_: _online_attention(  # noqa: E731
+        q_, k_, v_, K3_BK, scores, lambda p, vt: p.bfloat16().float() @ vt)
     return _per_head(fn, q, k, v).bfloat16()
 
 
@@ -169,12 +186,13 @@ def test_k2_f32_arithmetic_fits_its_bound(shape, peak):
 @pytest.mark.parametrize("shape", [(1, 256, 1, 512), (1, 1024, 1, 512)])
 @pytest.mark.parametrize("peak", [1.0, 4.0])
 def test_k3_bf16_arithmetic_fits_its_bound(shape, peak):
-    """K3 bf16 emulation (bf16 operands, P rounded to bf16, 64-key tiles)
-    vs the f32 plain result and JAX on the same bf16 inputs: max abs error
-    <= 1e-2 * max |f32 result| (measured 2.0e-3 to 3.3e-3)."""
+    """K3 bf16 emulation (bf16 operands, two f32 partial scores over the d
+    halves, P rounded to bf16, 64-key tiles) vs the f32 plain result and JAX
+    on the same bf16 inputs: max abs error <= 1e-2 * max |f32 result|
+    (measured 2.0e-3 to 3.3e-3)."""
     q, k, v = _inputs(shape, 60 + shape[1], peak)
     tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
-    got = k2_emulation(tq, tk, tv, bk=K3_BK).float()
+    got = k3_bf16_emulation(tq, tk, tv).float()
     want = tattn.attention_reference(tq.float(), tk.float(), tv.float())
     bound = K3_BF16_REL_BOUND * want.abs().max().item()
     assert (got - want).abs().max().item() <= bound
@@ -184,9 +202,10 @@ def test_k3_bf16_arithmetic_fits_its_bound(shape, peak):
 
 def test_k3_bf16_bound_fails_a_dropped_key_tile():
     """At the encode's L=4096 the bound tells a kernel that skipped one of
-    its 64 key tiles from a right one: the emulation stays inside it, the
-    attention over the other 63 tiles (rounded to bf16) leaves it by more
-    than 10x, where K2's absolute 2e-2 sits at 14% of max |f32 result|."""
+    its 64 key tiles (K3_BK keys) from a right one: the emulation stays
+    inside it, the attention over the other 63 tiles (rounded to bf16)
+    leaves it by more than 10x, where K2's absolute 2e-2 sits at 14% of
+    max |f32 result|."""
     q, k, v = _inputs((1, 4096, 1, 512), 64, 1.0)
     tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
     want = tattn.attention_reference(tq.float(), tk.float(), tv.float())
@@ -194,8 +213,22 @@ def test_k3_bf16_bound_fails_a_dropped_key_tile():
     keep = torch.ones(4096, dtype=torch.bool)
     keep[2048:2048 + K3_BK] = False
     dropped = tattn.attention_reference(tq.float(), tk[:, keep].float(), tv[:, keep].float()).bfloat16().float()
-    assert (k2_emulation(tq, tk, tv, bk=K3_BK).float() - want).abs().max().item() <= bound
+    assert (k3_bf16_emulation(tq, tk, tv).float() - want).abs().max().item() <= bound
     assert (dropped - want).abs().max().item() > 10 * bound
+
+
+def test_k3_bf16_partial_scores_agree_in_both_ctas():
+    """Each CTA of K3 bf16's cluster adds the partner's partial scores to its
+    own (rank 0: s0 + s1, rank 1: s1 + s0). f32 addition is commutative, so
+    both hold bit-equal scores, and with them the same P, row max and row
+    sum for their two halves of O."""
+    q, k, _ = _inputs((1, 256, 1, 512), 70, 4.0)
+    tq, tk = (torch.from_numpy(x[0, :, 0]).bfloat16().float() for x in (q, k))
+    s0 = tq[:, :256] @ tk[:64, :256].T
+    s1 = tq[:, 256:] @ tk[:64, 256:].T
+    assert torch.equal(s0 + s1, s1 + s0)
+    full = tq @ tk[:64].T  # one 512-long sum: the split moves it at most at the f32 rounding level
+    assert (s0 + s1 - full).abs().max().item() <= 1e-5 * full.abs().max().item()
 
 
 def test_k3_single_tf32_pass_for_pv_does_not_fit():
