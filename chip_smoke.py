@@ -11,7 +11,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    and prints the build time, ptxas's registers/spills per kernel and the
    tensor-core and local-memory instruction counts of the built SASS; it
    fails unless K3 bf16 (attention_d512_bf16: wgmma and TMA over a 2-CTA
-   cluster) has HGMMA, no HMMA and no spill loads or stores;
+   cluster) and K2 in f32 (attention_d64_f32: 3xTF32 on TF32 wgmma) have
+   HGMMA, no HMMA and no spill loads or stores;
 3. runs each kernel at the shapes of the SDXL-Turbo 512² main path — the
    per-level and the fused transition — and of the SDXL-base 1024² paths,
    against its plain PyTorch version on the same inputs: K1 slerp_rows at
@@ -21,9 +22,10 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    and a self-parent row, at [5|6|10,128,128,4] and on ragged rows; the K1
    wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
    batch [20,4096,10,64]) plus a peaked case (q scaled by 4); K2 in f32 at
-   [12|2,1024,10,64] and [10,…] peaked, K3 in bf16 at [4|8|1,4096,1,512],
-   [1,16384,1,512], [2,…] peaked and [1,192,1,512] (three key tiles); the
-   K2/K3 wrapper's refusals (no kernel for fp16, one head at d=512).
+   [12|2,1024,10,64], [10,…] peaked and [4,4096,10,64], K3 in bf16 at
+   [4|8|1,4096,1,512], [1,16384,1,512], [2,…] peaked and [1,192,1,512]
+   (three key tiles); the K2/K3 wrapper's refusals (no kernel for fp16,
+   one head at d=512, K2 f32's L a multiple of 128).
    The f32 kernels are held to K3_REL_BOUND, K2 bf16 to K2_ABS_BOUND and
    K3 bf16 to K3_BF16_REL_BOUND.
    For each case it prints the max abs/rel error, the kernel's device time
@@ -458,8 +460,9 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
 
 def _attention_refusals(torch, g) -> None:
     """flash_attention raises on a CUDA tensor whose (head dim, dtype) has
-    no kernel (fp16 at d=64 and d=512) and on the d=512 kernels' one-head
-    rule; nothing falls back to the plain version."""
+    no kernel (fp16 at d=64 and d=512), on the d=512 kernels' one-head
+    rule and on a sequence K2 f32's 128-row query tiles do not divide;
+    nothing falls back to the plain version."""
     from latentblending_tpu_torch.ops import attention
 
     def qkv(shape, dtype):
@@ -469,7 +472,7 @@ def _attention_refusals(torch, g) -> None:
         (TypeError, lambda: attention.flash_attention(*qkv((2, 1024, 10, 64), torch.float16))),
         (TypeError, lambda: attention.flash_attention(*qkv((1, 4096, 1, 512), torch.float16))),
         (ValueError, lambda: attention.flash_attention(*qkv((1, 4096, 2, 512), torch.bfloat16))),
-        (ValueError, lambda: attention.flash_attention(*qkv((1, 1056, 10, 64), torch.float32))),
+        (ValueError, lambda: attention.flash_attention(*qkv((1, 1088, 10, 64), torch.float32))),
     ]
     before = _read_counts()
     for i, (error, call) in enumerate(calls):
@@ -481,7 +484,7 @@ def _attention_refusals(torch, g) -> None:
     if _read_counts() != before:
         raise AssertionError("a refused flash_attention call launched a kernel")
     print(f"K2/K3 wrapper: {len(calls)} refusals raised (no kernel for fp16; one head at d=512; "
-          f"L a multiple of 64)", flush=True)
+          f"K2 f32's L a multiple of 128)", flush=True)
 
 
 def kernel_phases(torch) -> dict:
@@ -535,9 +538,10 @@ def kernel_phases(torch) -> dict:
     res["K2"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k2_cases]
     res["K3"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k3_cases]
     # K2 in f32 (an f32 UNet: the fused batch 12, the edges' 2, the
-    # per-level stems' 10 peaked); K3 in bf16 (a bf16 VAE: fused and
+    # per-level stems' 10 peaked, SDXL-base 1024²'s CFG edges 4); K3 in bf16 (a bf16 VAE: fused and
     # per-level decode chunks 4, 8 and 2, the encode's 1, the 1024² decode)
-    k2_f32_cases = [((12, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((10, 1024, 10, 64), 4.0)]
+    k2_f32_cases = [((12, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((10, 1024, 10, 64), 4.0),
+                    ((4, 4096, 10, 64), 1.0)]
     # (+ three key tiles: the kernel's peeled last tile after two loop steps)
     k3_bf16_cases = [((4, 4096, 1, 512), 1.0), ((8, 4096, 1, 512), 1.0), ((1, 4096, 1, 512), 1.0),
                      ((1, 16384, 1, 512), 1.0), ((2, 4096, 1, 512), 4.0), ((1, 192, 1, 512), 1.0)]
@@ -1052,7 +1056,7 @@ def _kernels_line(kres: dict, counts: dict) -> list:
                     "latentblending_tpu_torch/csrc/slerp.cu", replaces_k1),
         "K2": ("attention_d64_bf16 (wgmma, TMA)", "latentblending_tpu_torch/csrc/attention_d64_bf16.cu",
                "latentblending_tpu/models/layers.py:192"),
-        "K2_f32": ("attention_d64_f32 (3xTF32 mma.sync)", "latentblending_tpu_torch/csrc/attention_d64_f32.cu",
+        "K2_f32": ("attention_d64_f32 (3xTF32 wgmma, TMA, operands split once per tile)", "latentblending_tpu_torch/csrc/attention_d64_f32.cu",
                    "latentblending_tpu/models/layers.py:192"),
         "K3": ("attention_d512_f32 (3xTF32 mma.sync, 2-CTA cluster)",
                "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
@@ -1097,7 +1101,9 @@ def main() -> int:
     lib = _build.build(verbose=True)
     print(f"kernels built in {time.perf_counter() - t0:.3f} s -> {os.path.relpath(lib, ROOT)}", flush=True)
     _build.library()
-    _check_wgmma_sass(_print_sass_counts(lib), "attention_d512_bf16")
+    sass = _print_sass_counts(lib)
+    for kernel in ("attention_d512_bf16", "attention_d64_f32"):
+        _check_wgmma_sass(sass, kernel)
 
     kres = kernel_phases(torch)
     small_input_check(torch)

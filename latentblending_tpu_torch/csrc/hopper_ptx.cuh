@@ -1,8 +1,9 @@
 // Hand-written PTX helpers shared by the port's kernels (sm_90a):
 // mbarriers (local and across a cluster), TMA tile loads and their tensor
-// maps, cp.async, wgmma (bf16, 128-byte swizzle), mma.sync TF32 with a
-// hi/lo operand split, and thread-block-cluster shared memory. Header
-// only; every function is inlined into its kernel or launcher.
+// maps, cp.async, wgmma (bf16 and TF32, 128-byte swizzle), register
+// reallocation between warpgroups, mma.sync TF32 with a hi/lo operand
+// split, and thread-block-cluster shared memory. Header only; every
+// function is inlined into its kernel or launcher.
 #pragma once
 
 #include <cuda.h>
@@ -100,17 +101,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A row-major [rows, groups, 64] bf16 tensor read in boxes of `box_rows`
-// rows of one 64-column group: each box is box_rows x 128 bytes, written
-// to shared memory in the 128-byte swizzle that sw128_desc reads.
-inline bool make_map_sw128(CUtensorMap* map, const void* ptr, int64_t rows, int groups, int box_rows) {
+// A row-major [rows, groups, 128 bytes] tensor read in boxes of
+// `box_rows` rows of one 128-byte group (64 bf16 or 32 f32 columns): each
+// box is box_rows x 128 bytes, written to shared memory in the 128-byte
+// swizzle that sw128_desc reads.
+inline bool make_map_sw128(CUtensorMap* map, const void* ptr, int64_t rows, int groups, int box_rows,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)groups, (cuuint64_t)rows};
+  const cuuint64_t cols = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 32 : 64;
+  const cuuint64_t dims[3] = {cols, (cuuint64_t)groups, (cuuint64_t)rows};
   const cuuint64_t strides[2] = {128, (cuuint64_t)groups * 128};
-  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, 1, (cuuint32_t)box_rows};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -200,6 +204,51 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// D[64x64] (+)= A[64x8] * B[8x64], TF32 in, f32 accumulate; A from
+// registers (four b32 per thread, the m16n8k8 TF32 A-fragment layout for
+// each warp's 16 rows: rows g, g + 8 at k t, then at k t + 4), B from
+// shared memory K-major (TF32 has no transpose bit). The tensor core reads
+// the top 19 bits of each operand (truncation to TF32).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of it: a thread
+// that writes an operand runs it before signalling the barrier the wgmma
+// issuer waits on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Warpgroup-wide register reallocation (every warp of the warpgroup runs
+// it): dec gives registers back to the CTA's pool, inc waits for them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// x truncated to TF32 (the top 19 bits), as the bits of a TF32 operand.
+__device__ __forceinline__ uint32_t tf32_trunc(float x) { return __float_as_uint(x) & 0xffffe000u; }
 
 // ------------------------------------------------------- mma.sync TF32, 3xTF32
 

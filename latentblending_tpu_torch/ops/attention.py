@@ -19,9 +19,12 @@ never write the [B,H,L,L] logits, so memory stays O(L·tile):
 - K2 bf16, csrc/attention_d64_bf16.cu: warpgroup MMA (wgmma) on bf16, Q
   and K/V tiles loaded by TMA, softmax and P (bf16) kept in registers;
   query tiles of 64 rows, key tiles of 128 rows.
-- K2 f32, csrc/attention_d64_f32.cu: mma.sync TF32 in three passes
-  (3xTF32, hi/lo operand split: ~f32 accuracy), one CTA per 64 query rows
-  of one head, K/V tiles of 64 rows by cp.async, P kept in registers.
+- K2 f32, csrc/attention_d64_f32.cu: TF32 wgmma in three passes (3xTF32,
+  hi/lo operand split: ~f32 accuracy), one CTA per 128 query rows of one
+  head (two consumer warpgroups); a producer warpgroup loads Q and 64-key
+  K tiles by TMA and splits each K and V tile once for both consumers (V
+  written transposed, as TF32 wgmma wants it), Q split once into
+  registers, P split in registers.
 - K3 f32, csrc/attention_d512_f32.cu: 3xTF32 mma.sync, d split across a
   2-CTA cluster that exchanges partial scores through distributed shared
   memory; query and key tiles of 64 rows, one head only.
@@ -44,11 +47,11 @@ launches_vae = 0  # K3: d=512 f32
 launches_vae_bf16 = 0  # K3: d=512 bf16
 
 # (head dim, dtype) -> (C entry point, counter name, the sequence multiple
-# its tiles need: K2 bf16 64-row query and 128-row key tiles, the others
-# 64-row query and key tiles)
+# its tiles need: K2 bf16 64-row query and 128-row key tiles, K2 f32
+# 128-row query and 64-row key tiles, K3 64-row query and key tiles)
 _KERNELS = {
     (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "launches_self", 128),
-    (64, torch.float32): ("lb_attention_fwd_d64_f32", "launches_self_f32", 64),
+    (64, torch.float32): ("lb_attention_fwd_d64_f32", "launches_self_f32", 128),
     (512, torch.float32): ("lb_attention_fwd_d512_f32", "launches_vae", 64),
     (512, torch.bfloat16): ("lb_attention_fwd_d512_bf16", "launches_vae_bf16", 64),
 }
