@@ -8,6 +8,7 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
 
 1. prints the card (nvidia-smi name and power limit) and the TF32 switches;
 2. builds the hand-written CUDA kernels from latentblending_tpu_torch/csrc
+   (K1-K3, and J1-J3 of the movie's JPEG encoder)
    and prints the build time, ptxas's registers/spills per kernel and the
    tensor-core and local-memory instruction counts of the built SASS; it
    fails unless K3 bf16 (attention_d512_bf16: wgmma and TMA over a 2-CTA
@@ -53,7 +54,25 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
      measured warm walls of both paths;
    - one warm run of each path under torch.profiler: device time, busy
      share, kernel counts and the costliest kernels;
-6. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
+6. the movie (movie_phase) on the same engine, fused (LB_FUSED=1): one warm
+   run_transition, then run_movie_transition of the README example's
+   length (12 s at 30 fps) cold and warm, each with K1-K3 launched as the
+   fused transition launches them, J1 once per keyframe and J3 once per
+   sample (plus the quality probes of the first keyframe), J2 once per
+   in-between frame, backend "mjpeg+coef-lerp"; the file parsed with the
+   port's read_samples (360 samples of 512x512 at 30 fps, each from SOI to
+   EOI); J1 on the first two keyframes' I420 planes, J2 at the first two
+   in-between fractions and J3 on those four frames equal to their plain
+   versions, and the file's samples equal to those bytes; each kernel's
+   times and ms a frame for keyframe and in-between encodes;
+   write_movie_transition (RGB keyframes) for 2 s with the coefficient lerp
+   and with LB_COEF_LERP=0 (pixel lerp on the card, J1 and J3 per frame),
+   one frame of each: J1 (RGB) against its plain version, the sample
+   the kernels' bytes; save_tree, load_tree
+   into a fresh engine and extend_transition([3], [4]) with exact
+   launches; run_multi_transition on a 3-keyframe MovieProject, 2 s a part
+   (120 samples). The movies go to a temporary directory;
+7. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
    turbo UNet and CLIP and a bf16 copy of the VAE: set_keyframe1_image on
    a 512² picture (one K3 bf16 launch, the encode) and
    run_transition(recycle_img1=True), the fused path; set_keyframe2_image
@@ -62,9 +81,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    warm with exact launches; then the same 12 latents decoded by the f32
    and the bf16 VAE at 512² and one latent at 1024² (LSB apart, ms per
    keyframe);
-7. an f32 copy of the turbo UNet (f32_unet_phase): one fused
+8. an f32 copy of the turbo UNet (f32_unet_phase): one fused
    run_transition at 512², cold and warm, K2 f32 launched steps × 10 times;
-8. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
+9. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
    benchmark_speed; negative prompt; set_branching(depth_strength=0.5,
    nmb_max_branches=10), the plan [15,18,21,24,27] x [3,2,1,1,1]; then the
    measured-policy per-level path, the predictive policy's segmented
@@ -76,8 +95,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    again in turns (b, c, a, a, c, b) with the card's clock and power, one
    profiled run of each predictive path, and the cost model's predictions
    beside the measured walls;
-9. prints one JSON line with every kernel entry's numbers (K1 rows, K1
-   tree step, K2 bf16 and f32, K3 f32 and bf16), then the final line
+10. prints one JSON line with every kernel entry's numbers (K1 rows, K1
+   tree step, K2 bf16 and f32, K3 f32 and bf16, J1-J3), then the final line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the final line.
@@ -637,8 +656,12 @@ def small_input_check(torch) -> None:
         raise AssertionError(f"tiny-turbo fused vs per-level on the GPU: {lsb} LSB > 1")
 
 
+_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J2", "J3")
+
+
 def _zero_counts() -> None:
     from latentblending_tpu_torch.ops import attention, slerp
+    from latentblending_tpu_torch.video import jpeg
 
     slerp.launches = 0
     slerp.launches_tree_step = 0
@@ -646,14 +669,19 @@ def _zero_counts() -> None:
     attention.launches_self_f32 = 0
     attention.launches_vae = 0
     attention.launches_vae_bf16 = 0
+    jpeg.launches_fdct = 0
+    jpeg.launches_lerp = 0
+    jpeg.launches_huffman = 0
 
 
 def _read_counts() -> dict:
     from latentblending_tpu_torch.ops import attention, slerp
+    from latentblending_tpu_torch.video import jpeg
 
     return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
             "K2_f32": attention.launches_self_f32, "K3": attention.launches_vae,
-            "K3_bf16": attention.launches_vae_bf16}
+            "K3_bf16": attention.launches_vae_bf16, "J1": jpeg.launches_fdct, "J2": jpeg.launches_lerp,
+            "J3": jpeg.launches_huffman}
 
 
 def _ceil(a: int, b: int) -> int:
@@ -674,7 +702,7 @@ def _expected_launches(be, path: str, k2_per_eval: int, recycled: int = 0) -> di
     n_kf = 2 + sum(int(n) for n in be.list_nmb_stems)
     k2 = "K2_f32" if str(be.dh.dtype) == "torch.float32" else "K2"
     k3 = "K3_bf16" if str(be.dh.vae_dtype) == "torch.bfloat16" else "K3"
-    out = dict.fromkeys(("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16"), 0)
+    out = dict.fromkeys(_COUNT_KEYS, 0)
     if path in ("fused", "fused-multi"):
         fc = int(os.environ.get("LB_FETCH_CHUNK", "4"))
         out.update({"K1_tree": N, k2: N * k2_per_eval,
@@ -798,6 +826,272 @@ def main_path(torch, be) -> dict:
         "dt_vae": be.dt_vae, "dt_sync": be.dt_sync,
     }), flush=True)
     return {"fused": fused["counts"], "per-level": per_level["counts"]}
+
+
+# the README example's movie: 12 s at 30 fps
+MOVIE_SECONDS, MOVIE_FPS = 12, 30
+
+
+def _movie_samples(fp: str, n: int, hw: tuple, fps: float, label: str) -> list:
+    """The file's samples, after checking that it is this muxer's MJPEG MP4
+    with n samples of size hw at fps, each running from SOI to EOI."""
+    from latentblending_tpu_torch.video.mjpeg_mp4 import read_samples
+
+    got = read_samples(fp)
+    if got is None:
+        raise AssertionError(f"{label}: {fp} is not an MJPEG MP4 of the port's muxer")
+    samples, shape, rate = got
+    if len(samples) != n or tuple(shape) != tuple(hw) or abs(rate - fps) > 1e-9:
+        raise AssertionError(f"{label}: {len(samples)} samples of {shape} at {rate} fps, expected {n} of {hw} at {fps}")
+    bad = [i for i, x in enumerate(samples) if x[:2] != b"\xff\xd8" or x[-2:] != b"\xff\xd9"]
+    if bad:
+        raise AssertionError(f"{label}: samples {bad[:10]} do not run from SOI to EOI")
+    return samples
+
+
+def _expect_counts(counts: dict, want: dict, label: str) -> None:
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def _check_jpeg_counts(counts: dict, keyframes: int, frames: int, lerped: int, label: str) -> int:
+    """J1 once per keyframe (or frame, on the pixel path) and J3 once per
+    sample, plus the same number of quality probes in each (the first
+    keyframe's calibrate_quality), J2 once per lerped frame; returns the
+    probes."""
+    probes = counts["J1"] - keyframes
+    if not (0 <= probes <= 7 and counts["J3"] == frames + probes and counts["J2"] == lerped):
+        raise AssertionError(f"{label}: JPEG launches {counts}, expected J1 {keyframes} + p, J2 {lerped}, "
+                             f"J3 {frames} + p with 0 <= p <= 7")
+    return probes
+
+
+def _jpeg_exact(torch, label: str, got, want) -> int:
+    """Kernel against plain version, exactly; returns the max abs error (0)."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{label}: kernel differs from its plain version")
+    return 0
+
+
+def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> dict:
+    """J1-J3 on the movie's first two keyframes (the I420 planes the engine
+    shipped) and the first two in-between fractions, each exactly equal to
+    its plain version, and those four frames' bytes equal to the file's
+    samples; then each kernel's times (device time by CUDA-graph replay for
+    J1 and J2; J3 and the plain versions by CUDA events around one call,
+    J3 including its read of the length and its copy to the host; the plain
+    J3, a Python bit writer, by the host clock on these four frames) and
+    ms a frame for keyframe encodes (J1+J3) and in-between frames (J2+J3)."""
+    import numpy as np
+
+    from latentblending_tpu_torch.ops.schedules import frame_insert_counts
+    from latentblending_tpu_torch.video import jpeg
+
+    H, W = be.dh.height_img, be.dh.width_img
+    planes = be.dh.to_i420_device(torch.stack(be._imgs_dev[:2])).contiguous()
+    coef = jpeg.fdct_quant(planes, quality)
+    j1_err = _jpeg_exact(torch, "J1 (I420)", coef, jpeg.fdct_quant_reference(planes, quality))
+    gap = frame_insert_counts(len(be._imgs_dev), target)[0]
+    fracts = [float(f) for f in np.linspace(0, 1, gap + 2)[1:3]]
+    lerps = [jpeg.coef_lerp(coef[0], coef[1], f) for f in fracts]
+    j2_err = max(_jpeg_exact(torch, f"J2 t={f}", c, jpeg.coef_lerp_reference(coef[0], coef[1], f))
+                 for f, c in zip(fracts, lerps))
+    header = jpeg.jfif_header(H, W, quality)
+    plain_s, scans = [], {}
+    for idx, c in ((0, coef[0]), (1, lerps[0]), (2, lerps[1]), (gap + 1, coef[1])):
+        scan = jpeg.huffman_scan(c)
+        t0 = time.perf_counter()
+        want = jpeg.huffman_scan_reference(c)
+        plain_s.append(time.perf_counter() - t0)
+        if scan != want:
+            raise AssertionError(f"J3: sample {idx}'s scan differs from the plain coder's")
+        if samples[idx] != header + scan + jpeg.EOI:
+            raise AssertionError(f"movie sample {idx} is not the kernels' bytes for its frame")
+        scans[idx] = scan
+    print(f"movie kernels vs plain: J1 on 2 keyframes [2,{H * 3 // 2},{W}] q{quality}, J2 at t={fracts}, J3 on "
+          f"samples 0, 1, 2, {gap + 1}: all equal, and equal to the file's samples", flush=True)
+
+    def times(case: dict, kernel, plain_ms: float, graph: bool = True) -> dict:
+        # the plain versions copy small tables to the card, which a CUDA graph
+        # cannot capture: CUDA events around one call time them
+        case["call_ms"] = _median_ms(torch, kernel)
+        case["ms"] = _device_ms(torch, kernel) if graph else case["call_ms"]
+        case.update(plain_ms=plain_ms, library_ms=None, bound_us=case["bound_ms"] * 1e3)
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        return case
+
+    one = planes[:1].contiguous()
+    coef_bytes = coef[0].numel() * 2
+    j1 = times({"shape": f"[1,{H * 3 // 2},{W}] uint8 I420 -> [{coef.shape[1]},64] int16", "max_abs_err": j1_err,
+                **_bound(one.numel() + coef_bytes, 0, "bf16")},
+               lambda: jpeg.fdct_quant(one, quality),
+               _median_ms(torch, lambda: jpeg.fdct_quant_reference(one, quality)))
+    j2 = times({"shape": f"2 x [{coef.shape[1]},64] int16", "max_abs_err": j2_err, **_bound(3 * coef_bytes, 0, "bf16")},
+               lambda: jpeg.coef_lerp(coef[0], coef[1], fracts[0]),
+               _median_ms(torch, lambda: jpeg.coef_lerp_reference(coef[0], coef[1], fracts[0])))
+    # J3 reads the scan's length on the host: its time is one call's, reads included
+    j3 = times({"shape": f"[{coef.shape[1]},64] int16 -> {len(scans[0])} bytes (keyframe 0)", "max_abs_err": 0,
+                **_bound(coef_bytes + len(scans[0]), 0, "bf16")},
+               lambda: jpeg.huffman_scan(coef[0]), statistics.median(plain_s) * 1e3, graph=False)
+    pair = jpeg.CoefFrames(coef[0], coef[1], H, W, quality)
+    per_frame = {"keyframe (J1+J3)": _median_ms(torch, lambda: jpeg.encode_coefs(jpeg.fdct_quant(one, quality)[0],
+                                                                                  H, W, quality)),
+                 "in-between (J2+J3)": _median_ms(torch, lambda: pair.lerp(fracts[0]))}
+    for name, case in (("J1", j1), ("J2", j2), ("J3", j3)):
+        print(f"{name} {case['shape']}: device {case['ms']:.5f} ms, one call {case['call_ms']:.5f} ms, plain "
+              f"{case['plain_ms']:.5f} ms, bound {case['bound_us']:.3f} us ({case['bound_by']}), share "
+              f"{case['share_of_bound']:.1%}", flush=True)
+    print(f"movie ms a frame at {H}x{W} (CUDA events, one call each, host reads included): {json.dumps(per_frame)}",
+          flush=True)
+    return {"J1": [j1], "J2": [j2], "J3": [j3]}
+
+
+def movie_phase(torch, be) -> dict:
+    """The movie path at full width on the main path's engine, fused
+    (LB_FUSED=1, the path an uncalibrated engine takes): one warm
+    run_transition for its wall; run_movie_transition of the README's
+    length cold (counted) and warm; its file parsed and J1-J3 held against
+    their plain versions on its samples; write_movie_transition (RGB
+    keyframes) for 2 s with the coefficient lerp and with LB_COEF_LERP=0;
+    save_tree, load_tree into a fresh engine on the same holder and one
+    extend_transition level; run_multi_transition on a 3-keyframe project.
+    Movies go to a temporary directory. Returns the launch counts of each
+    counted run and J1-J3's kernel numbers."""
+    import tempfile
+
+    from latentblending_tpu_torch.engine.blending import BlendingEngine
+    from latentblending_tpu_torch.engine.session import Keyframe, MovieProject, run_multi_transition
+    from latentblending_tpu_torch.engine.tree_cache import load_tree, save_tree
+    from latentblending_tpu_torch.ops.schedules import frame_insert_counts
+    from latentblending_tpu_torch.video import jpeg
+    from latentblending_tpu_torch.video.frames import stream_frames_lazy_device
+
+    H, W = be.dh.height_img, be.dh.width_img
+    k2 = K2_PER_EVAL[H]
+    target = MOVIE_SECONDS * MOVIE_FPS
+    counts: dict = {}
+    old_coef = os.environ.pop("LB_COEF_LERP", None)
+    with tempfile.TemporaryDirectory(prefix="lb_movie_") as tmp, _lb_fused("1"):
+        t0 = time.perf_counter()
+        be.run_transition(fixed_seeds=SEEDS)
+        torch.cuda.synchronize()
+        trans_warm = time.perf_counter() - t0
+
+        fp = os.path.join(tmp, "movie.mp4")
+        walls = []
+        for run in ("cold", "warm"):
+            _zero_counts()
+            t0 = time.perf_counter()
+            imgs = be.run_movie_transition(fp, MOVIE_SECONDS, fps=MOVIE_FPS, fixed_seeds=SEEDS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            c = _read_counts()
+            # K1-K3 as the fused transition launches them; J1-J3 as the movie needs
+            _check_transition(be, imgs, {**c, "J1": 0, "J2": 0, "J3": 0}, "fused", k2, f"movie ({run})")
+            n_kf = len(be.tree_final_imgs)
+            probes = _check_jpeg_counts(c, n_kf, target, target - n_kf, f"movie ({run})")
+            if run == "cold":
+                counts["movie (run_movie_transition)"] = c
+        if be.last_writer_backend != "mjpeg+coef-lerp":
+            raise AssertionError(f"movie: backend {be.last_writer_backend}, expected mjpeg+coef-lerp")
+        q = be.last_jpeg_quality
+        samples = _movie_samples(fp, target, (H, W), MOVIE_FPS, "movie")
+        phases = be.last_report.phases
+        print(f"movie: run_movie_transition {MOVIE_SECONDS} s at {MOVIE_FPS} fps, {len(samples)} samples of "
+              f"{H}x{W} ({os.path.getsize(fp)} bytes), backend {be.last_writer_backend}, settled quality {q} "
+              f"({probes} probe encodes), cold wall {walls[0]:.4f} s, warm wall {walls[1]:.4f} s beside "
+              f"run_transition's warm wall {trans_warm:.4f} s; warm phases: movie_write "
+              f"{json.dumps(phases.get('movie_write'))}, keyframe_fetch {json.dumps(phases.get('keyframe_fetch'))}; "
+              f"launches (cold) {json.dumps(counts['movie (run_movie_transition)'])}", flush=True)
+        kres = _jpeg_kernel_checks(torch, be, samples, q, target)
+
+        # the finished tree's movie from its RGB keyframes, then the pixel path
+        rgb_target = 2 * MOVIE_FPS
+        for label, coef_lerp in (("movie rgb (write_movie_transition)", None),
+                                 ("movie pixel (LB_COEF_LERP=0)", "0")):
+            if coef_lerp is not None:
+                os.environ["LB_COEF_LERP"] = coef_lerp
+            fp2 = os.path.join(tmp, f"rgb_{coef_lerp}.mp4")
+            _zero_counts()
+            t0 = time.perf_counter()
+            try:
+                be.write_movie_transition(fp2, 2, fps=MOVIE_FPS)
+            finally:
+                os.environ.pop("LB_COEF_LERP", None)
+            wall = time.perf_counter() - t0
+            c = counts[label] = _read_counts()
+            pixel = coef_lerp == "0"
+            _check_jpeg_counts(c, rgb_target if pixel else n_kf, rgb_target, 0 if pixel else rgb_target - n_kf, label)
+            s2 = _movie_samples(fp2, rgb_target, (H, W), MOVIE_FPS, label)
+            q2 = be.last_jpeg_quality
+            idx = 1 if pixel else 0
+            frame = torch.from_numpy(be.tree_final_imgs[0]).to(be.dh.device)
+            if pixel:  # the first in-between frame, lerped on the card as the writer lerps it
+                ins = frame_insert_counts(n_kf, rgb_target)[0]
+                frame = list(stream_frames_lazy_device(be.tree_final_imgs[:2], ins + 2, lambda im: im,
+                                                       be.dh.device))[1]
+            got = jpeg.fdct_quant(frame[None].contiguous(), q2, "rgb")
+            want = jpeg.fdct_quant_reference(frame[None].contiguous(), q2, "rgb")
+            _jpeg_exact(torch, f"{label}: J1 (RGB)", got, want)
+            # J3 against its plain coder ran on the movie's frames (4 at most at 512²: it is slow)
+            if s2[idx] != jpeg.jfif_header(H, W, q2) + jpeg.huffman_scan(got[0]) + jpeg.EOI:
+                raise AssertionError(f"{label}: sample {idx} is not the kernels' bytes for its frame")
+            print(f"{label}: {len(s2)} samples in {wall:.4f} s, backend {be.last_writer_backend}, quality {q2}, "
+                  f"sample {idx}: J1 (RGB) equals its plain version and the file the kernels' bytes; "
+                  f"launches {json.dumps(c)}", flush=True)
+
+        # the tree cache: save, load into a fresh engine, one more level
+        fp3 = os.path.join(tmp, "tree.npz")
+        save_tree(be, fp3)
+        be2 = BlendingEngine(be.dh)
+        meta = load_tree(be2, fp3)
+        be2.set_negative_prompt(meta["negative_prompt"])
+        be2.set_prompt1(meta["prompt1"])
+        be2.set_prompt2(meta["prompt2"])
+        idx_inj, stems = 3, 4
+        n_before = len(be2.tree_final_imgs)
+        _zero_counts()
+        t0 = time.perf_counter()
+        ext = be2.extend_transition([idx_inj], [stems])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts["tree cache: extend_transition"] = _read_counts()
+        N = be2.num_inference_steps
+        want = dict.fromkeys(_COUNT_KEYS, 0)
+        want.update({"K1_rows": N - idx_inj + 1, "K2": (N - idx_inj) * k2, "K3": _ceil(stems, be2.dh.decode_chunk)})
+        _expect_counts(c, want, "tree cache: extend_transition")
+        sims = list(be2.tree_similarities)
+        if len(ext) != n_before + stems or len(sims) != len(ext) - 1 or not all(
+                x == x and abs(x) != float("inf") for x in sims):
+            raise AssertionError(f"tree cache: {len(ext)} keyframes from {n_before}, similarities {sims}")
+        print(f"tree cache: {os.path.getsize(fp3)} bytes, loaded {n_before} keyframes into a fresh engine, "
+              f"extend_transition([{idx_inj}], [{stems}]) in {wall:.4f} s -> {len(ext)} keyframes, {len(sims)} finite "
+              f"similarities, launches {json.dumps(c)} (as expected)", flush=True)
+        del be2
+
+        # a chained session: 3 keyframes, 2 s a part, into one movie
+        project = MovieProject([Keyframe("photo of a forest at dawn, mist between the trees", SEEDS[0]),
+                                Keyframe("photo of a city at night, neon lights in the rain", SEEDS[1],
+                                         "blurry, low quality"),
+                                Keyframe("photo of a desert at noon, dunes under a white sky", 422)],
+                               width=W, height=H, num_inference_steps=be.num_inference_steps)
+        fp4 = os.path.join(tmp, "multi.mp4")
+        _zero_counts()
+        t0 = time.perf_counter()
+        run_multi_transition(be, project, fp4, duration_single_trans=2, fps=MOVIE_FPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts["run_multi_transition"] = _read_counts()
+        s4 = _movie_samples(fp4, 2 * 2 * MOVIE_FPS, (H, W), MOVIE_FPS, "run_multi_transition")
+        n_kf = 2 * len(be.tree_final_imgs)  # each part writes its two edges
+        _check_jpeg_counts(c, n_kf, len(s4), len(s4) - n_kf, "run_multi_transition")
+        if be.last_writer_backend != "mjpeg+coef-lerp":
+            raise AssertionError(f"run_multi_transition: backend {be.last_writer_backend}")
+        print(f"run_multi_transition: 3 keyframes, 2 parts of {2 * MOVIE_FPS} frames -> {len(s4)} samples in "
+              f"{wall:.4f} s, backend {be.last_writer_backend}, launches {json.dumps(c)}", flush=True)
+    if old_coef is not None:
+        os.environ["LB_COEF_LERP"] = old_coef
+    return {"counts": counts, "kres": kres}
 
 
 def _test_image(h: int, w: int, seed: int):
@@ -1062,6 +1356,13 @@ def _kernels_line(kres: dict, counts: dict) -> list:
                "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
         "K3_bf16": ("attention_d512_bf16 (wgmma, TMA, 2-CTA cluster)",
                     "latentblending_tpu_torch/csrc/attention_d512_bf16.cu", "latentblending_tpu/models/layers.py:373"),
+        # no TPU kernel: the work the JAX package does on the host through libjpeg
+        "J1": ("jpeg_fdct_quant (libjpeg's islow DCT and quantize, from I420 or RGB)",
+               "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:66"),
+        "J2": ("jpeg_coef_lerp (an in-between frame's coefficients)", "latentblending_tpu_torch/csrc/jpeg.cu",
+               "latentblending_tpu/video/_jpeg_lerp.py:107"),
+        "J3": ("jpeg_huffman (baseline Huffman coding and byte stuffing: 4 launches a count)",
+               "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:66"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
@@ -1119,6 +1420,9 @@ def main() -> int:
     print(f"allocated before the main path: {torch.cuda.memory_allocated()} bytes", flush=True)
     counts = main_path(torch, be)
     profile_paths(torch, be)
+    movie = movie_phase(torch, be)
+    counts.update(movie["counts"])
+    kres.update(movie["kres"])
     be.tree_latents, be._imgs_dev, be.tree_final_imgs = [None, None], [], []
     torch.cuda.empty_cache()
     counts.update(image_phase(torch, be.dh))

@@ -33,8 +33,11 @@ resolves both and returns uint8 [H,W,3] numpy keyframes.
 `extend_transition` deepens a finished tree. An image can pin either
 keyframe (`set_keyframe1_image` / `set_keyframe2_image`, then
 `run_transition(recycle_img1/2=True)`): the VAE encodes it and a
-forward-noised trajectory stands in for that edge's denoise. LPIPS, movie
-writing, sessions and the tree cache are not ported yet (ROADMAP.md).
+forward-noised trajectory stands in for that edge's denoise.
+`run_movie_transition` runs the transition and writes its movie while
+later keyframes still stream to the host; `write_movie_transition` writes
+the movie of a finished tree. Both encode on the holder's device
+(video/writer.py). LPIPS is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -60,7 +63,10 @@ from latentblending_tpu_torch.ops.slerp import slerp_rows
 from latentblending_tpu_torch.profiling import PhaseTimer, TransitionReport
 from latentblending_tpu_torch.runtime.denoise import Conditioning
 from latentblending_tpu_torch.runtime.holder import SDXLHolder
+from latentblending_tpu_torch.utils import get_logger
 from latentblending_tpu_torch.video.i420 import to_rgb
+
+log = get_logger(__name__)
 
 
 def _sync(x: torch.Tensor) -> None:
@@ -203,6 +209,9 @@ class BlendingEngine:
         self._queue_tail = None
         self.timer = PhaseTimer()
         self.last_report = TransitionReport()
+        # the last movie's writer backend and settled JPEG quality (note_writer)
+        self.last_writer_backend: Optional[str] = None
+        self.last_jpeg_quality: Optional[int] = None
 
         # cost model of the fused-vs-per-level gate (seconds). dt_unet_step
         # and dt_vae are placeholders until measured (turbo engines do not
@@ -1350,6 +1359,83 @@ class BlendingEngine:
             neg_prompt_embeds=mix(e1[1], e2[1], f), neg_pooled_embeds=mix(e1[3], e2[3], f[:, :, 0]),
             neg_time_ids=tids,
         )
+
+    # ---------------------------------------------------------------- output
+
+    def _movie_saver(self, fp_movie: str, fps: int):
+        from latentblending_tpu_torch.video.writer import MovieSaver
+
+        return MovieSaver(fp_movie, fps=fps, shape_hw=(self.dh.height_img, self.dh.width_img), device=self.dh.device)
+
+    def write_movie_transition(self, fp_movie: str, duration_transition: float, fps: int = 30):
+        """Write the movie of the current tree: its keyframes filled up to
+        fps × duration frames (video/writer.write_frames_interp, on the
+        holder's device). LB_DEVICE_FILLUP=1 lerps all frames on the device
+        first and encodes them as frames."""
+        from latentblending_tpu_torch.video.frames import add_frames_linear_interp_device
+        from latentblending_tpu_torch.video.writer import write_frames, write_frames_interp
+
+        target = int(round(fps * duration_transition))
+        ms = self._movie_saver(fp_movie, fps)
+        if os.environ.get("LB_DEVICE_FILLUP") == "1":
+            write_frames(ms, add_frames_linear_interp_device(self.tree_final_imgs, target, self.dh.device))
+        else:
+            write_frames_interp(ms, self.tree_final_imgs, target)
+        ms.finalize()
+        self.note_writer(ms)
+        log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
+
+    def run_movie_transition(self, fp_movie: str, duration_transition: float, fps: int = 30,
+                             recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
+                             fixed_seeds: Optional[List[int]] = None) -> list:
+        """The transition and its movie in one call: the writer starts on
+        the first keyframe while later keyframes' device→host copies and
+        the last round's similarity pass are still in flight. Keyframes
+        ship as packed I420 planes (half the bytes; the encoder takes the
+        planes) unless LB_KEYFRAME_I420=0 or LB_DEVICE_FILLUP=1. Returns
+        the keyframe list like run_transition."""
+        from latentblending_tpu_torch.video.frames import add_frames_linear_interp_device
+        from latentblending_tpu_torch.video.writer import write_frames, write_frames_interp
+
+        device_fillup = os.environ.get("LB_DEVICE_FILLUP") == "1"
+        self._keyframe_fmt = "i420" if (not device_fillup and self._i420_fetch_ok()) else "rgb"
+        try:
+            self._run_transition_core(recycle_img1, recycle_img2, fixed_seeds)
+        finally:
+            self._keyframe_fmt = "rgb"
+        target = int(round(fps * duration_transition))
+        batch_cache: dict = {}
+
+        def resolve(im):
+            with self.timer.phase("keyframe_fetch"):
+                return resolve_image(im, batch_cache)
+
+        with self.timer.phase("movie_write"):
+            ms = self._movie_saver(fp_movie, fps)
+            if device_fillup:
+                self._resolve_keyframes(batch_cache)
+                write_frames(ms, add_frames_linear_interp_device(self.tree_final_imgs, target, self.dh.device))
+            else:
+                write_frames_interp(ms, self.tree_final_imgs, target, resolve=resolve)
+            ms.finalize()
+        self.note_writer(ms)
+        log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
+        self._resolve_keyframes(batch_cache)
+        self._finalize_report()
+        return self.tree_final_imgs
+
+    def note_writer(self, ms) -> None:
+        """Record which movie backend ran ("mjpeg", "+coef-lerp" when the
+        coefficient lerp made the in-between frames) and the settled JPEG
+        quality. Callers that own their MovieSaver (engine/session.py) call
+        this after finalize."""
+        backend = getattr(ms, "backend", None)
+        if backend and getattr(ms, "used_coef_lerp", False):
+            backend += "+coef-lerp"
+        self.last_writer_backend = backend
+        self.last_jpeg_quality = getattr(ms, "jpeg_quality", None)
+
+    _note_writer = note_writer  # back-compat alias
 
     # ---------------------------------------------------------------- state
 

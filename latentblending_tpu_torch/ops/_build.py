@@ -43,6 +43,12 @@ _SIGNATURES = {
     "lb_attention_fwd_d64_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "lb_attention_fwd_d512_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "lb_attention_fwd_d512_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "lb_jpeg_fdct_quant": [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "lb_jpeg_coef_lerp": [_P, _P, _P, ctypes.c_int64, ctypes.c_float, _P],
+    "lb_jpeg_huff_count": [_P, _P, _P, ctypes.c_int, _P],
+    "lb_jpeg_huff_write": [_P, _P, _P, _P, ctypes.c_int, _P],
+    "lb_jpeg_stuff_count": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "lb_jpeg_stuff_scatter": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
 }
 
 
@@ -121,3 +127,16 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry `name` on the current stream of the first argument's
+    device (a tensor): tensors pass as their data pointers, other arguments
+    as given; raise on a launch error."""
+    import torch
+
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        rc = getattr(library(), name)(*ptrs, stream)
+    check(rc, name)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from latentblending_tpu_torch.ops import _build
 from latentblending_tpu_torch.ops.interp import interpolate_spherical_batched
 
 # kernel launches made by slerp_rows / slerp_tree_step (a CPU call launches nothing)
@@ -104,16 +105,6 @@ def host_checked_index(idx, rows: int, device) -> torch.Tensor:
     return t
 
 
-def _launch(name: str, *args) -> None:
-    from latentblending_tpu_torch.ops import _build
-
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        rc = getattr(_build.library(), name)(*ptrs, stream)
-    _build.check(rc, name)
-
-
 def slerp_rows(a: torch.Tensor, b: torch.Tensor, fract: torch.Tensor) -> torch.Tensor:
     """Per-row slerp of a, b [B, ...] with fractions fract [B] (f32 math)."""
     if not a.is_cuda:
@@ -127,7 +118,7 @@ def slerp_rows(a: torch.Tensor, b: torch.Tensor, fract: torch.Tensor) -> torch.T
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
-    _launch(_ROWS[a.dtype], a, b, fract, out, rows, a.numel() // rows)
+    _build.launch(_ROWS[a.dtype], a, b, fract, out, rows, a.numel() // rows)
     launches += 1
     return out
 
@@ -164,7 +155,7 @@ def slerp_tree_step(latents: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, p
         return out
     _check_index("p1", p1, rows)
     _check_index("p2", p2, rows)
-    _launch(_TREE[latents.dtype], latents, p1, p2, parent_fract, mix_coeff, window, win_mask,
+    _build.launch(_TREE[latents.dtype], latents, p1, p2, parent_fract, mix_coeff, window, win_mask,
             out, rows, latents.numel() // rows)
     launches_tree_step += 1
     return out

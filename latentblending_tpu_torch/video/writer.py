@@ -1,0 +1,272 @@
+"""Movie IO: MovieSaver, write_frames, write_frames_interp, concatenate_movies.
+
+Counterpart of latentblending_tpu/video/writer.py. Backends (LB_WRITER):
+
+- `auto` (default) and `mjpeg`: MJPEG-in-MP4 (video/mjpeg_mp4.py), every
+  sample encoded on the card by the port's JPEG kernels (video/jpeg.py);
+- `ffmpeg`: the JAX package's x264 subprocess, taken only when asked for
+  by name, so a host binary never hides the device path;
+- `cv2` raises: OpenCV's VideoWriter is not part of the port.
+
+Reading a movie back (`read_movie_frames`) needs a JPEG decoder and is not
+ported.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+from .mjpeg_mp4 import MjpegMp4Writer, as_rgb_frame
+
+_BACKENDS = ("auto", "mjpeg", "ffmpeg")
+
+
+class MovieSaver:
+    """Streaming MP4 writer: write_frame(uint8 HWC RGB) … finalize().
+    MJPEG samples are encoded on `device` (the card unless a CPU device is
+    given); frames may be numpy arrays or tensors."""
+
+    def __init__(self, fp_movie: str, fps: int = 30, shape_hw: tuple[int, int] | None = None, crf: int = 21,
+                 device="cuda"):
+        self.fp_movie = fp_movie
+        self.fps = fps
+        self.shape_hw = tuple(shape_hw) if shape_hw is not None else None
+        self.crf = crf
+        self.device = torch.device(device)
+        self.nmb_frames = 0
+        # which backend ran ("mjpeg"/"ffmpeg"), whether the coefficient lerp
+        # made the in-between frames, and the MJPEG quality the movie settled on
+        self.backend: str | None = None
+        self.used_coef_lerp = False
+        self.jpeg_quality: int | None = None
+        self._proc = None
+        self._mjpeg = None
+        if os.path.isfile(fp_movie):
+            os.remove(fp_movie)
+        d = os.path.dirname(fp_movie)
+        if d:
+            os.makedirs(d, exist_ok=True)
+
+    def _open(self, h: int, w: int):
+        self.shape_hw = (h, w)
+        if h % 2 or w % 2:
+            # yuv420p (and most players) require even dimensions
+            raise ValueError(f"movie dimensions must be even, got {w}x{h}")
+        backend = os.environ.get("LB_WRITER", "auto")
+        if backend not in _BACKENDS:
+            raise ValueError(f"LB_WRITER={backend!r} is not available in the port (one of {_BACKENDS})")
+        if backend != "ffmpeg":
+            self._mjpeg = MjpegMp4Writer(self.fp_movie, fps=self.fps, shape_hw=(h, w), device=self.device)
+            self.backend = "mjpeg"
+            return
+        exe = shutil.which("ffmpeg")
+        if exe is None:
+            raise RuntimeError("LB_WRITER=ffmpeg but no ffmpeg binary found")
+        self.backend = "ffmpeg"
+        self._proc = subprocess.Popen(
+            [
+                exe, "-y", "-loglevel", "error",
+                "-f", "rawvideo", "-pix_fmt", "rgb24", "-s", f"{w}x{h}", "-r", str(self.fps),
+                "-i", "-", "-c:v", "libx264", "-crf", str(self.crf), "-pix_fmt", "yuv420p",
+                self.fp_movie,
+            ],
+            stdin=subprocess.PIPE,
+        )
+
+    def open_mjpeg(self):
+        """Open the backend now (shape_hw must be known) and return the MJPEG
+        writer if that is the chosen backend, else None."""
+        if self._proc is None and self._mjpeg is None:
+            if self.shape_hw is None:
+                return None
+            self._open(*self.shape_hw)
+        return self._mjpeg
+
+    def write_encoded(self, jpg: bytes):
+        """Append an already-encoded JPEG sample (MJPEG backend only)."""
+        if self._mjpeg is None:
+            raise RuntimeError("write_encoded requires the MJPEG backend (call open_mjpeg first)")
+        self._mjpeg.write_encoded(jpg)
+        self.nmb_frames += 1
+
+    def write_frame(self, img):
+        img = as_rgb_frame(img)
+        if self._proc is None and self._mjpeg is None:
+            h, w = (self.shape_hw or tuple(img.shape[:2]))
+            self._open(h, w)
+        if tuple(img.shape[:2]) != tuple(self.shape_hw):
+            raise ValueError(f"frame shape {tuple(img.shape[:2])} != movie shape {self.shape_hw}")
+        if self._mjpeg is not None:
+            self._mjpeg.write_frame(img)
+        else:
+            arr = img.cpu().numpy() if isinstance(img, torch.Tensor) else img
+            try:
+                self._proc.stdin.write(np.ascontiguousarray(arr).tobytes())
+            except BrokenPipeError as e:
+                rc = self._proc.poll()
+                raise RuntimeError(f"ffmpeg died (exit {rc}) while writing {self.fp_movie}") from e
+        self.nmb_frames += 1
+
+    def finalize(self):
+        if self._mjpeg is not None:
+            self.jpeg_quality = self._mjpeg.quality
+            self._mjpeg.finalize()
+            self._mjpeg = None
+        elif self._proc is not None:
+            self._proc.stdin.close()
+            rc = self._proc.wait()
+            self._proc = None
+            if rc != 0:
+                raise RuntimeError(f"ffmpeg exited with code {rc} for {self.fp_movie}")
+        if self.nmb_frames > 0 and not (os.path.isfile(self.fp_movie) and os.path.getsize(self.fp_movie) > 0):
+            raise RuntimeError(f"movie file {self.fp_movie} was not written")
+
+
+def write_frames(ms: MovieSaver, frames, threaded: bool | None = None) -> None:
+    """Feed an iterable of (possibly reused) host frame buffers to a MovieSaver.
+
+    threaded=None → auto: produce frames on this thread and encode on a
+    consumer thread when the host has spare cores; LB_WRITER_THREAD=1/0
+    forces the choice. Frames are copied into a rotating pool of 4 buffers
+    before queueing (queue 2 + consumer 1 in flight), because producers
+    reuse their output buffer."""
+    if threaded is None:
+        env = os.environ.get("LB_WRITER_THREAD")
+        threaded = env == "1" if env is not None else (os.cpu_count() or 1) > 2
+    if not threaded:
+        for img in frames:
+            ms.write_frame(img)
+        return
+
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    errs: list[BaseException] = []
+
+    def _consume():
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                ms.write_frame(item)
+        except BaseException as e:  # propagate to the producer
+            errs.append(e)
+            while q.get() is not None:  # drain so the producer never blocks
+                pass
+
+    th = threading.Thread(target=_consume, daemon=True)
+    th.start()
+    pool: list[np.ndarray] = []
+    i = 0
+    for frame in frames:
+        if errs:
+            break
+        frame = np.asarray(frame)
+        if len(pool) < 4:
+            pool.append(np.empty_like(frame))
+        buf = pool[i % 4]
+        i += 1
+        np.copyto(buf, frame)
+        q.put(buf)
+    q.put(None)
+    th.join()
+    if errs:
+        raise errs[0]
+
+
+def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
+                        resolve=None, threaded: bool | None = None) -> None:
+    """Fill K keyframes up to nmb_frames_target frames and write the movie.
+
+    With the MJPEG backend everything is encoded on the writer's device:
+    - LB_COEF_LERP unset or "1" (the default): each keyframe's quantized
+      coefficients (J1) give its sample (J3), and each in-between frame is
+      the lerp of its gap's two coefficient sets (J2) coded by J3; only the
+      finished bytes cross to the host. The JAX package's gate picks this
+      path by host cores, which do not encode here.
+    - "0": the pixel path: keyframes as RGB (I420 converted first, as the
+      JAX fallback does), the lerp on the device by `_lerp_u8`'s rule, and
+      each frame encoded by J1 and J3.
+    The ffmpeg backend lerps on the host and pipes RGB frames.
+
+    Keyframes are resolved lazily, left to right, so encoding overlaps the
+    device→host copies of later keyframes. They may be packed I420 planes
+    [H*3/2, W] (the engine's fetch format, video/i420.py) or RGB: I420
+    keyframes are encoded straight from their planes at any even size
+    (libjpeg's edge expansion), where the JAX writer needs W % 16 == 0.
+    """
+    from latentblending_tpu_torch.ops.schedules import frame_insert_counts
+
+    from . import jpeg
+    from .frames import stream_frames_lazy, stream_frames_lazy_device
+    from .i420 import i420_hw, is_i420, to_rgb
+
+    if resolve is None:
+        resolve = lambda im: im  # noqa: E731
+    mj = ms.open_mjpeg()
+    if mj is None:
+        write_frames(ms, stream_frames_lazy(handles, nmb_frames_target, lambda im: to_rgb(resolve(im))),
+                     threaded=threaded)
+        return
+    use_coef = nmb_frames_target > len(handles) and os.environ.get("LB_COEF_LERP", "1") != "0"
+    if not use_coef:
+        with mj.encoding():
+            for frame in stream_frames_lazy_device(handles, nmb_frames_target, lambda im: to_rgb(resolve(im)),
+                                                   mj.device):
+                ms.write_frame(frame)
+        return
+
+    ms.used_coef_lerp = True
+    h, w = ms.shape_hw
+
+    def prep(handle) -> tuple[torch.Tensor, str]:
+        a = np.ascontiguousarray(np.asarray(resolve(handle)), dtype=np.uint8)
+        hw = i420_hw(a) if is_i420(a) else a.shape[:2]
+        if tuple(hw) != (h, w):
+            raise ValueError(f"keyframe shape {tuple(hw)} != movie shape {(h, w)}")
+        return torch.from_numpy(a).to(mj.device), ("i420" if is_i420(a) else "rgb")
+
+    def encode(key: tuple[torch.Tensor, str]) -> tuple[bytes, torch.Tensor]:
+        """(sample, coefficients) of a keyframe; the first settles the
+        writer's quality for the movie (calibrate_quality), so every sample
+        shares its quant tables."""
+        frame, fmt = key
+        coefs: dict = {}
+
+        def at(q: int) -> bytes:
+            coefs[q] = jpeg.fdct_quant(frame[None], q, fmt)[0]
+            return jpeg.encode_coefs(coefs[q], h, w, q)
+
+        jpg = at(mj.quality) if mj._q_settled else mj.calibrate_quality(at)
+        return jpg, coefs[mj.quality]
+
+    counts = frame_insert_counts(len(handles), nmb_frames_target)
+    with mj.encoding():
+        jcur, ccur = encode(prep(handles[0]))
+        ms.write_encoded(jcur)
+        for i in range(len(handles) - 1):
+            jnxt, cnxt = encode(prep(handles[i + 1]))
+            gap = jpeg.CoefFrames(ccur, cnxt, h, w, mj.quality)
+            for f in np.linspace(0, 1, counts[i] + 2)[1:-1]:
+                ms.write_encoded(gap.lerp(float(f)))
+            ms.write_encoded(jnxt)
+            ccur = cnxt
+
+
+def concatenate_movies(fp_final: str, list_fp_movies: list[str], fps: int | None = None):
+    """Concatenate MJPEG MP4 parts written by this package into one movie,
+    losslessly (mjpeg_mp4.concat_parts). Other files would need a decoder,
+    which the port does not have: they raise."""
+    from .mjpeg_mp4 import concat_parts
+
+    if not list_fp_movies:
+        raise ValueError("nothing to concatenate")
+    if not concat_parts(fp_final, list_fp_movies, fps=fps):
+        raise ValueError(f"concatenate_movies: not all of {list_fp_movies} are MJPEG MP4 parts of one shape and "
+                         f"fps written by this package")

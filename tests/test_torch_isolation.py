@@ -2,8 +2,9 @@
 package's host modules.
 
 - The port never imports jax or flax: every module of
-  latentblending_tpu_torch, and chip_smoke.py, imports in a subprocess in
-  which `import jax` fails.
+  latentblending_tpu_torch (the movie path's tree cache, video layer and
+  sessions included), and chip_smoke.py, imports in a subprocess in which
+  `import jax` and `import latentblending_tpu` fail.
 - The copied host modules equal their originals: configs, schedules,
   utils, video/i420 and engine/config (EngineConfig) byte for byte; the tokenizer (its `regex` import moved inside the
   BPE path) and profiling (without the jax.profiler hook) by behaviour.
@@ -79,9 +80,15 @@ def _port_modules() -> list[str]:
     return mods
 
 
+# the movie path's modules (tree cache, video layer, sessions) are among them
+MOVIE_MODULES = ["engine.tree_cache", "engine.session", "video.frames", "video.jpeg", "video.mjpeg_mp4",
+                 "video.writer"]
+
+
 def test_port_never_imports_jax():
     mods = _port_modules()
     assert "latentblending_tpu_torch.engine.blending" in mods and len(mods) > 15
+    assert all(f"latentblending_tpu_torch.{m}" in mods for m in MOVIE_MODULES)
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'jaxlib', 'latentblending_tpu'):\n"

@@ -86,3 +86,16 @@ def tiny_unet_pair(pooled: int = 48, seed: int = 3):
         return tu(lat.permute(0, 3, 1, 2), t, pe, pool, tids).permute(0, 2, 3, 1).contiguous()
 
     return (lambda p, lat, t, pe, pool, tids: ju.apply({"params": p}, lat, t, pe, pool, tids)), params, t_apply
+
+
+def mjpeg_writers(monkeypatch, coef_lerp: str) -> None:
+    """Both packages' movie writers on the same backend: LB_WRITER=mjpeg,
+    LB_COEF_LERP=`coef_lerp` ("1": the coefficient lerp; "0": the pixel
+    path), and no ffmpeg binary visible to the JAX writer (its `auto`
+    backend would take one, and its concatenate_movies would use it)."""
+    from latentblending_tpu.video import writer as jax_writer
+
+    monkeypatch.setenv("LB_WRITER", "mjpeg")
+    monkeypatch.setenv("LB_COEF_LERP", coef_lerp)
+    monkeypatch.setattr(jax_writer, "_ffmpeg_exe", lambda: None)
+
