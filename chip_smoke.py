@@ -6,7 +6,9 @@
 Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
 (the kernels are built for sm_90a). In order, it:
 
-1. prints the card (nvidia-smi name and power limit) and the TF32 switches;
+1. prints the card (nvidia-smi name and power limit), turns TF32 off
+   (precision.disable_tf32, as the port's scripts do) and prints the
+   switches;
 2. builds the hand-written CUDA kernels from latentblending_tpu_torch/csrc
    (K1-K3, and J1-J3 of the movie's JPEG encoder)
    and prints the build time, ptxas's registers/spills per kernel and the
@@ -72,7 +74,21 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    into a fresh engine and extend_transition([3], [4]) with exact
    launches; run_multi_transition on a 3-keyframe MovieProject, 2 s a part
    (120 samples). The movies go to a temporary directory;
-7. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
+7. the reference-facing surface (reference_api_phase) on the same holder:
+   an LPIPS engine (seeded random weights under the `lpips` package's
+   names) on the fused and per-level paths with exact launches (LPIPS
+   launches none of K1-K3), its distances on the card against the CPU
+   (LPIPS_REL_BOUND) and the pass's times at 512² and 1024²; the gap
+   between the metrics on one engine switched by apply_config;
+   write_imgs_transition (12 JPEGs: J1's RGB route once, J3 per file, the
+   first file equal to encode_rgb of its keyframe; J1 RGB on all 12
+   keyframes against its plain version and timed); the reference's single-branch loop for 3
+   stems with exact launches, cold and warm, beside one per-level round
+   of 3 stems; compute_preview_images over 4 seeds; the holder written as
+   a full-width HF snapshot with a minimal safetensors writer, loaded by
+   SDXLHolder.from_pretrained and held bit for bit against its source,
+   then apps/example_single_trans.main on it (a 2 s movie of 60 samples);
+8. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
    turbo UNet and CLIP and a bf16 copy of the VAE: set_keyframe1_image on
    a 512² picture (one K3 bf16 launch, the encode) and
    run_transition(recycle_img1=True), the fused path; set_keyframe2_image
@@ -81,9 +97,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    warm with exact launches; then the same 12 latents decoded by the f32
    and the bf16 VAE at 512² and one latent at 1024² (LSB apart, ms per
    keyframe);
-8. an f32 copy of the turbo UNet (f32_unet_phase): one fused
+9. an f32 copy of the turbo UNet (f32_unet_phase): one fused
    run_transition at 512², cold and warm, K2 f32 launched steps × 10 times;
-9. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
+10. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
    benchmark_speed; negative prompt; set_branching(depth_strength=0.5,
    nmb_max_branches=10), the plan [15,18,21,24,27] x [3,2,1,1,1]; then the
    measured-policy per-level path, the predictive policy's segmented
@@ -95,8 +111,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    again in turns (b, c, a, a, c, b) with the card's clock and power, one
    profiled run of each predictive path, and the cost model's predictions
    beside the measured walls;
-10. prints one JSON line with every kernel entry's numbers (K1 rows, K1
-   tree step, K2 bf16 and f32, K3 f32 and bf16, J1-J3), then the final line
+11. prints one JSON line with every kernel entry's numbers (K1 rows, K1
+   tree step, K2 bf16 and f32, K3 f32 and bf16, J1 and its RGB route,
+   J2, J3), then the final line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the final line.
@@ -656,7 +673,7 @@ def small_input_check(torch) -> None:
         raise AssertionError(f"tiny-turbo fused vs per-level on the GPU: {lsb} LSB > 1")
 
 
-_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J2", "J3")
+_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J2", "J3")
 
 
 def _zero_counts() -> None:
@@ -670,6 +687,7 @@ def _zero_counts() -> None:
     attention.launches_vae = 0
     attention.launches_vae_bf16 = 0
     jpeg.launches_fdct = 0
+    jpeg.launches_fdct_rgb = 0
     jpeg.launches_lerp = 0
     jpeg.launches_huffman = 0
 
@@ -680,7 +698,8 @@ def _read_counts() -> dict:
 
     return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
             "K2_f32": attention.launches_self_f32, "K3": attention.launches_vae,
-            "K3_bf16": attention.launches_vae_bf16, "J1": jpeg.launches_fdct, "J2": jpeg.launches_lerp,
+            "K3_bf16": attention.launches_vae_bf16, "J1": jpeg.launches_fdct, "J1_rgb": jpeg.launches_fdct_rgb,
+            "J2": jpeg.launches_lerp,
             "J3": jpeg.launches_huffman}
 
 
@@ -825,7 +844,8 @@ def main_path(torch, be) -> dict:
         "dt_step_by_batch": be._dt_step_by_batch, "dt_unet_step": be.dt_unet_step,
         "dt_vae": be.dt_vae, "dt_sync": be.dt_sync,
     }), flush=True)
-    return {"fused": fused["counts"], "per-level": per_level["counts"]}
+    return {"fused": fused["counts"], "per-level": per_level["counts"]}, {"fused": fused["warm_s"],
+                                                                          "per-level": per_level["warm_s"]}
 
 
 # the README example's movie: 12 s at 30 fps
@@ -987,7 +1007,7 @@ def movie_phase(torch, be) -> dict:
             walls.append(time.perf_counter() - t0)
             c = _read_counts()
             # K1-K3 as the fused transition launches them; J1-J3 as the movie needs
-            _check_transition(be, imgs, {**c, "J1": 0, "J2": 0, "J3": 0}, "fused", k2, f"movie ({run})")
+            _check_transition(be, imgs, {**c, "J1": 0, "J1_rgb": 0, "J2": 0, "J3": 0}, "fused", k2, f"movie ({run})")
             n_kf = len(be.tree_final_imgs)
             probes = _check_jpeg_counts(c, n_kf, target, target - n_kf, f"movie ({run})")
             if run == "cold":
@@ -1022,6 +1042,8 @@ def movie_phase(torch, be) -> dict:
             c = counts[label] = _read_counts()
             pixel = coef_lerp == "0"
             _check_jpeg_counts(c, rgb_target if pixel else n_kf, rgb_target, 0 if pixel else rgb_target - n_kf, label)
+            if c["J1_rgb"] != c["J1"]:
+                raise AssertionError(f"{label}: every J1 launch should take the RGB route, got {c}")
             s2 = _movie_samples(fp2, rgb_target, (H, W), MOVIE_FPS, label)
             q2 = be.last_jpeg_quality
             idx = 1 if pixel else 0
@@ -1092,6 +1114,372 @@ def movie_phase(torch, be) -> dict:
     if old_coef is not None:
         os.environ["LB_COEF_LERP"] = old_coef
     return {"counts": counts, "kres": kres}
+
+
+# LPIPS on the card against the plain CPU run of the same module on the
+# same images: max relative difference of the distances. f32 on both sides
+# with TF32 off, so only the order of the convolutions' sums differs
+# (cuDNN's algorithms against the CPU's). The first card run measured
+# 1.2e-7 at 512² (H100); the bound leaves two orders of magnitude for
+# other algorithm choices, and a TF32 convolution (10-bit mantissa) would
+# break it.
+LPIPS_REL_BOUND = 1e-5
+_ST_DTYPES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16"}
+
+
+def _write_safetensors(torch, path: str, state: dict) -> int:
+    """A minimal safetensors writer (the package has a reader only): the
+    8-byte little-endian header length, the JSON header padded to 8 bytes,
+    then each tensor's bytes in name order. Returns the file's size."""
+    import struct
+
+    names = sorted(state)
+    header, off = {}, 0
+    for k in names:
+        t = state[k]
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": _ST_DTYPES[str(t.dtype)], "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for k in names:
+            f.write(state[k].detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(head) + off
+
+
+# the SDXL-Turbo checkpoint's scheduler_config.json (its solver and spacing)
+TURBO_SCHEDULER_JSON = {"_class_name": "EulerAncestralDiscreteScheduler", "beta_start": 0.00085, "beta_end": 0.012,
+                        "beta_schedule": "scaled_linear", "num_train_timesteps": 1000, "prediction_type": "epsilon",
+                        "steps_offset": 1, "timestep_spacing": "trailing"}
+
+
+def _write_snapshot(torch, dh, root: str) -> int:
+    """The holder's four modules as a HF snapshot directory; returns the bytes written."""
+    total = 0
+    for sub, mod, name in (("unet", dh.unet, "diffusion_pytorch_model"), ("vae", dh.vae, "diffusion_pytorch_model"),
+                           ("text_encoder", dh.clip1, "model"), ("text_encoder_2", dh.clip2, "model")):
+        os.makedirs(os.path.join(root, sub))
+        total += _write_safetensors(torch, os.path.join(root, sub, f"{name}.safetensors"), mod.state_dict())
+    os.makedirs(os.path.join(root, "scheduler"))
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(TURBO_SCHEDULER_JSON, f)
+    return total
+
+
+def _finite(xs) -> bool:
+    return all(x == x and abs(x) != float("inf") for x in xs)
+
+
+def _single_branch_loop(torch, be, idx: int, stems: int) -> dict:
+    """The reference's loop, one branch at a time: both edges
+    (compute_latents1/2, each decoded by latent2image), the tree's
+    similarities, then `stems` times get_mixing_parameters, _find_parents,
+    set_guidance_mid_dampening, compute_latents_mix and insert_into_tree.
+    Returns the wall of each step (host clock, each step synchronized)."""
+    walls: dict = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    lat1 = step("compute_latents1", be.compute_latents1)
+    lat2 = step("compute_latents2", be.compute_latents2)
+
+    def edges():
+        be.tree_latents = [lat1, lat2]
+        be.tree_fracts = [0.0, 1.0]
+        be.tree_idx_injection = [0, 0]
+        be.tree_final_imgs = [be.dh.latent2image(lat1[-1]), be.dh.latent2image(lat2[-1])]
+        be._imgs_dev = []
+        be.tree_similarities = be.get_tree_similarities()
+
+    step("edge keyframes + get_tree_similarities", edges)
+    for _ in range(stems):
+        fract, b1, b2 = step("get_mixing_parameters", lambda: be.get_mixing_parameters(idx))
+        if be._find_parents(fract, idx) != (b1, b2):
+            raise AssertionError(f"single-branch loop: _find_parents disagrees with get_mixing_parameters at {fract}")
+        be.set_guidance_mid_dampening(fract)
+        lat = step("compute_latents_mix", lambda: be.compute_latents_mix(fract, b1, b2, idx))
+        step("insert_into_tree", lambda: be.insert_into_tree(fract, idx, lat))
+    n = 2 + stems
+    if (len(be.tree_fracts) != n or len(be.tree_latents) != n or len(be.tree_final_imgs) != n
+            or be.tree_fracts != sorted(be.tree_fracts) or len(be.tree_similarities) != n - 1
+            or not _finite(be.tree_similarities)):
+        raise AssertionError(f"single-branch loop: tree {be.tree_fracts}, similarities {be.tree_similarities}")
+    return walls
+
+
+def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
+    """The reference-facing surface at full width, on the SDXL-Turbo 512²
+    holder of the main path:
+    1. LPIPS: BlendingEngine(dh, similarity_metric="lpips", lpips_params=
+       seeded random weights under the `lpips` package's names), the fused
+       and the per-level (LB_FUSED=0) run_transition, each with K1-K3
+       launched exactly as the NLPD runs launch them (LPIPS launches none);
+       the card's distances against the plain CPU run of the same module
+       and keyframes (LPIPS_REL_BOUND); the pass's time, host time, peak
+       requested bytes and costliest kernels for 11 pairs at 512² and 9
+       pairs at 1024²; the gap between the metrics: the LPIPS engine
+       switched by apply_config between them in turns, per run the wall,
+       the similarity phases and the allocator's cudaMalloc, cudaFree and
+       retry counts, then one profiled fused run of each;
+    2. write_imgs_transition of those 12 keyframes into a temporary
+       directory: J1 (RGB route) once, J3 once per keyframe, each file from
+       SOI to EOI, the first equal to encode_rgb of its keyframe, lowres.yaml
+       the yaml_text of get_state_dict(); J1's RGB route on the 12
+       keyframes at once (the batch write_imgs_transition gives it)
+       against its plain version, its times and bound;
+    3. the reference's single-branch loop (_single_branch_loop, 3 stems)
+       first with exact launches, then warm, beside a per-level transition
+       of the same 3 stems in one round;
+    4. compute_preview_images over 4 seeds: one batched denoise and one
+       batched decode;
+    5. from_pretrained at full width: the holder's modules written as a HF
+       snapshot (about 8.7 GB; the free disk printed first), loaded with
+       SDXLHolder.from_pretrained(spec="sdxl-turbo") and compared tensor by
+       tensor, bit for bit (UNet and CLIP after the loader's rounding to
+       bf16); then apps.example_single_trans.main(["--snapshot", dir,
+       "--duration", "2"]): its MP4 of 60 samples, exact launches. The
+       snapshot is removed after.
+    Returns the launch counts of each counted run and J1 RGB's numbers."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from latentblending_tpu_torch.apps import example_single_trans
+    from latentblending_tpu_torch.engine.blending import BlendingEngine
+    from latentblending_tpu_torch.models.lpips import LPIPSScorer, random_lpips_state_dict
+    from latentblending_tpu_torch.ops.scheduler import SDXL_TURBO_SCHEDULER
+    from latentblending_tpu_torch.runtime.holder import SDXLHolder
+    from latentblending_tpu_torch.video import jpeg
+    from latentblending_tpu_torch.yaml_text import dump
+
+    dh = be_main.dh
+    H, W = dh.height_img, dh.width_img
+    N = dh.num_inference_steps
+    k2 = K2_PER_EVAL[H]
+    counts: dict = {}
+
+    # ---- 1. LPIPS
+    weights = random_lpips_state_dict(seed=5)
+    be = BlendingEngine(dh, similarity_metric="lpips", lpips_params=weights)
+    be.set_negative_prompt("blurry, low quality")
+    be.set_prompt1("photo of a forest at dawn, mist between the trees")
+    be.set_prompt2("photo of a city at night, neon lights in the rain")
+    runs = {"lpips, fused": _drive_path(torch, be, "fused", "lpips, fused (default)", k2)}
+    with _lb_fused("0"):
+        runs["lpips, per-level"] = _drive_path(torch, be, "per-level", "lpips, per-level (LB_FUSED=0)", k2)
+    counts.update({name: r["counts"] for name, r in runs.items()})
+    print("lpips vs nlpd warm walls (s): " + json.dumps({
+        "lpips": {"fused": runs["lpips, fused"]["warm_s"], "per-level": runs["lpips, per-level"]["warm_s"]},
+        "nlpd": nlpd_walls}), flush=True)
+    a, b = torch.stack(be._imgs_dev[:-1]), torch.stack(be._imgs_dev[1:])
+    got = be.lpips.distance_batch(a, b)
+    want = LPIPSScorer(params=weights, device="cpu").distance_batch(a.cpu(), b.cpu())
+    rel = float(((got.cpu() - want).abs() / want.abs()).max())
+    g = torch.Generator(device=dh.device).manual_seed(11)
+    big_a = torch.rand((9, 1024, 1024, 3), generator=g, device=dh.device) * 2 - 1
+    big_b = torch.rand((9, 1024, 1024, 3), generator=g, device=dh.device) * 2 - 1
+    lp: dict = {}
+    for size, (x, y) in ((H, (a, b)), (1024, (big_a, big_b))):
+        be.lpips.distance_batch(x, y)  # first call: algorithm choice, allocator growth
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        be.lpips.distance_batch(x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+        ms = _median_ms(torch, lambda: be.lpips.distance_batch(x, y), reps=5, warmup=1)
+        t0 = time.perf_counter()
+        be.lpips.distance_batch(x, y)
+        host_ms = (time.perf_counter() - t0) * 1e3  # the call's return, before the card is done
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            be.lpips.distance_batch(x, y)
+            torch.cuda.synchronize()
+        _, by_name = _device_kernels(torch, prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        lp[size] = {"pairs": x.shape[0], "ms": ms, "host_ms": host_ms, "peak_requested_above_before": peak - before,
+                    "device_ms": sum(t for t, _ in by_name.values()),
+                    "top": [{"name": n[:80], "ms": t, "calls": c} for n, (t, c) in top]}
+    print(f"lpips pass (CUDA events, one call; peak requested bytes above those held before; one profiled call): "
+          f"{json.dumps(lp)}; card vs CPU distances at {H}x{W} max rel diff {rel:.3e} (bound {LPIPS_REL_BOUND})",
+          flush=True)
+    if rel > LPIPS_REL_BOUND or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"lpips: card vs CPU distances {rel} > {LPIPS_REL_BOUND}")
+    del big_a, big_b
+
+    # the gap between the metrics, on one engine (the LPIPS engine switched
+    # by apply_config: same holder, tree and engine state): nlpd, lpips,
+    # lpips, nlpd on each path; per run the wall, the similarity phases and
+    # the allocator's cudaMalloc / cudaFree / retry counts (a cudaFree waits
+    # for the card), then one profiled fused run of each metric (device
+    # time against wall)
+    cfg = be.get_config()
+    turns: dict = {}
+    for gate, path in (("1", "fused"), ("0", "per-level")):
+        with _lb_fused(gate):
+            for metric in ("nlpd", "lpips", "lpips", "nlpd"):
+                be.apply_config(dataclasses.replace(cfg, similarity_metric=metric))
+                m0 = torch.cuda.memory_stats()
+                t0 = time.perf_counter()
+                be.run_transition(fixed_seeds=SEEDS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                m1 = torch.cuda.memory_stats()
+                if _report_path(be) != path:
+                    raise AssertionError(f"turns {metric} {path}: report levels {be.last_report.levels}")
+                ph = be.last_report.phases
+                turns.setdefault(f"{metric}, {path}", []).append({
+                    "wall_s": wall,
+                    "similarity_s": sum(v["total_s"] for k_, v in ph.items() if k_.startswith("similarity")),
+                    **{k_: m1[k_] - m0[k_] for k_ in ("num_device_alloc", "num_device_free", "num_alloc_retries")}})
+    print("lpips vs nlpd on one engine in turns: " + json.dumps(turns) + f"; card after them {_card_state()}",
+          flush=True)
+    for metric in ("nlpd", "lpips"):
+        be.apply_config(dataclasses.replace(cfg, similarity_metric=metric))
+        profile_paths(torch, be, ((f"{metric}, fused", "1"),))
+
+    # ---- 2. write_imgs_transition
+    with tempfile.TemporaryDirectory(prefix="lb_imgs_") as tmp:
+        _zero_counts()
+        t0 = time.perf_counter()
+        be.write_imgs_transition(tmp)
+        wall = time.perf_counter() - t0
+        c = counts["write_imgs_transition"] = _read_counts()
+        n_kf = len(be.tree_final_imgs)
+        want_c = dict.fromkeys(_COUNT_KEYS, 0)
+        want_c.update({"J1": 1, "J1_rgb": 1, "J3": n_kf})
+        _expect_counts(c, want_c, "write_imgs_transition")
+        names = sorted(os.listdir(tmp))
+        if names != sorted([f"lowres_img_{i:04d}.jpg" for i in range(n_kf)] + ["lowres.yaml"]):
+            raise AssertionError(f"write_imgs_transition wrote {names}")
+        files = [open(os.path.join(tmp, f"lowres_img_{i:04d}.jpg"), "rb").read() for i in range(n_kf)]
+        if any(x[:2] != b"\xff\xd8" or x[-2:] != b"\xff\xd9" for x in files):
+            raise AssertionError("write_imgs_transition: a file does not run from SOI to EOI")
+        frames = torch.from_numpy(np.stack(be.tree_final_imgs)).to(dh.device)
+        if files[0] != jpeg.encode_rgb(frames[:1], 75)[0]:
+            raise AssertionError("write_imgs_transition: file 0 is not encode_rgb of keyframe 0")
+        with open(os.path.join(tmp, "lowres.yaml"), encoding="utf-8") as f:
+            if f.read() != dump(be.get_state_dict()):
+                raise AssertionError("write_imgs_transition: lowres.yaml is not the engine's state")
+        print(f"write_imgs_transition: {n_kf} JPEGs ({sum(map(len, files))} bytes) and lowres.yaml in {wall:.4f} s, "
+              f"launches {json.dumps(c)} (as expected)", flush=True)
+    # J1's RGB route at the batch write_imgs_transition gives it: all the
+    # keyframes in one call
+    coef = jpeg.fdct_quant(frames, 75, "rgb")
+    err = _jpeg_exact(torch, f"J1 (RGB) on the {n_kf} keyframes", coef, jpeg.fdct_quant_reference(frames, 75, "rgb"))
+    j1 = {"shape": f"[{n_kf},{H},{W},3] uint8 RGB -> [{n_kf},{coef.shape[1]},64] int16", "max_abs_err": err,
+          **_bound(frames.numel() + coef.numel() * 2, 0, "bf16")}
+    j1["call_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant(frames, 75, "rgb"))
+    j1["ms"] = _device_ms(torch, lambda: jpeg.fdct_quant(frames, 75, "rgb"))
+    j1["plain_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant_reference(frames, 75, "rgb"))
+    j1.update(library_ms=None, bound_us=j1["bound_ms"] * 1e3, share_of_bound=j1["bound_ms"] / j1["ms"])
+    print(f"J1 (RGB) {j1['shape']}: equal to its plain version; device {j1['ms']:.5f} ms, one call "
+          f"{j1['call_ms']:.5f} ms, plain {j1['plain_ms']:.5f} ms, bound {j1['bound_us']:.3f} us ({j1['bound_by']}), "
+          f"share {j1['share_of_bound']:.1%}", flush=True)
+
+    # ---- 3. the single-branch loop, beside one per-level round of as many stems
+    idx, stems = int(be.list_idx_injection[0]), 3
+    _zero_counts()
+    first = _single_branch_loop(torch, be, idx, stems)
+    c = counts["single-branch loop"] = _read_counts()
+    # each edge: one denoise of N steps (slerp_rows once per step); each stem:
+    # the parental mix (one slerp_rows) and N - idx steps; one decode per keyframe
+    want_c = dict.fromkeys(_COUNT_KEYS, 0)
+    want_c.update({"K1_rows": 2 * N + stems * (N - idx + 1), "K2": (2 * N + stems * (N - idx)) * k2,
+                   "K3": 2 + stems})
+    _expect_counts(c, want_c, "single-branch loop")
+    warm = _single_branch_loop(torch, be, idx, stems)
+    print(f"single-branch loop ({stems} stems at idx {idx}): launches {json.dumps(c)} (as expected); walls (s) first "
+          f"{json.dumps(first)}, warm {json.dumps(warm)}; warm total {sum(warm.values()):.4f} s; tree_fracts "
+          f"{[round(f, 6) for f in be.tree_fracts]}, similarities {be.tree_similarities}", flush=True)
+    be.set_branching(nmb_max_branches=stems)
+    with _lb_fused("0"):
+        round3 = _drive_path(torch, be, "per-level", f"per-level, one round of {stems} stems", k2)
+    counts[f"per-level, {stems} stems"] = round3["counts"]
+    be.set_branching()
+    print(f"single-branch loop warm {sum(warm.values()):.4f} s against one per-level round of the same "
+          f"{stems} stems {round3['warm_s']:.4f} s", flush=True)
+
+    # ---- 4. previews
+    seeds = [1, 2, 3, 4]
+    _zero_counts()
+    t0 = time.perf_counter()
+    prev = be.compute_preview_images(seeds)
+    first_s = time.perf_counter() - t0
+    c = counts["compute_preview_images"] = _read_counts()
+    want_c = dict.fromkeys(_COUNT_KEYS, 0)
+    want_c.update({"K1_rows": N, "K2": N * k2, "K3": _ceil(len(seeds), dh.decode_chunk)})
+    _expect_counts(c, want_c, "compute_preview_images")
+    if len(prev) != len(seeds) or any(p.shape != (H, W, 3) or str(p.dtype) != "uint8" for p in prev):
+        raise AssertionError(f"compute_preview_images: {[(p.shape, p.dtype) for p in prev]}")
+    t0 = time.perf_counter()
+    be.compute_preview_images(seeds)
+    print(f"compute_preview_images({seeds}): {len(prev)} uint8 {H}x{W} images, first {first_s:.4f} s, warm "
+          f"{time.perf_counter() - t0:.4f} s, launches {json.dumps(c)} (as expected)", flush=True)
+    del be
+
+    # ---- 5. from_pretrained at full width, and the example script on it
+    tmp_root = tempfile.gettempdir()
+    du = shutil.disk_usage(tmp_root)
+    print(f"disk at {tmp_root}: total {du.total} bytes, free {du.free} bytes; the snapshot is written in full "
+          f"(UNet, VAE and both CLIP towers at full width)", flush=True)
+    snap = tempfile.mkdtemp(prefix="sdxl-turbo-snapshot-")
+    try:
+        t0 = time.perf_counter()
+        nbytes = _write_snapshot(torch, dh, snap)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dh2 = SDXLHolder.from_pretrained(snap, spec="sdxl-turbo", device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_t = 0
+        for name in ("unet", "vae", "clip1", "clip2"):
+            got_sd = getattr(dh2, name).state_dict()
+            for k, v in getattr(dh, name).state_dict().items():
+                ref_v = v if name == "vae" else v.to(dh2.dtype).to(v.dtype)
+                if got_sd[k].dtype != v.dtype or not torch.equal(got_sd[k], ref_v):
+                    raise AssertionError(f"from_pretrained: {name} {k} differs from its source")
+                n_t += 1
+        if dh2.schedule.config != SDXL_TURBO_SCHEDULER:
+            raise AssertionError(f"from_pretrained: scheduler {dh2.schedule.config}, not {TURBO_SCHEDULER_JSON}")
+        print(f"from_pretrained: {nbytes} bytes written in {write_s:.3f} s, then read and loaded onto the card in "
+              f"{load_s:.3f} s ({nbytes / load_s / 1e9:.2f} GB/s; page cache warm: the files were just written by "
+              f"this process); {n_t} tensors equal to their sources bit for bit (UNet and CLIP after the rounding "
+              f"to {dh2.dtype}), scheduler {dh2.schedule.config.scheduler_type}", flush=True)
+        del dh2, got_sd
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="lb_app_") as tmp:
+            out = os.path.join(tmp, "example1.mp4")
+            _zero_counts()
+            t0 = time.perf_counter()
+            app = example_single_trans.main(["--snapshot", snap, "--duration", "2", "--out", out])
+            torch.cuda.synchronize()
+            app_s = time.perf_counter() - t0
+            c = counts["example_single_trans --snapshot"] = _read_counts()
+            n_kf = len(app.tree_final_imgs)
+            k_want = _expected_launches(app, "fused", k2)
+            kk = [k for k in _COUNT_KEYS if k[0] == "K"]
+            _expect_counts({k: c[k] for k in kk}, {k: k_want[k] for k in kk}, "example_single_trans (K1-K3)")
+            _check_jpeg_counts(c, n_kf, 2 * MOVIE_FPS, 2 * MOVIE_FPS - n_kf, "example_single_trans")
+            samples = _movie_samples(out, 2 * MOVIE_FPS, (H, W), MOVIE_FPS, "example_single_trans")
+            print(f"example_single_trans --snapshot (from_pretrained, run_transition, write_movie_transition 2 s): "
+                  f"{len(samples)} samples in {app_s:.3f} s, {n_kf} keyframes, launches {json.dumps(c)}", flush=True)
+            del app
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "kres": {"J1_rgb": [j1]}}
 
 
 def _test_image(h: int, w: int, seed: int):
@@ -1298,6 +1686,16 @@ def base_phase(torch, turbo_dh) -> dict:
     return {name: r["counts"] for name, r in runs.items()}
 
 
+def _device_kernels(torch, prof) -> tuple:
+    """The device kernel events of a torch.profiler run, and {name: (ms, calls)}."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return kernels, by_name
+
+
 def profile_paths(torch, be, paths=(("fused", "1"), ("per-level", "0"))) -> None:
     """One run_transition of each (label, LB_FUSED) path under
     torch.profiler, device activity only (every path ran warm before; the
@@ -1318,13 +1716,9 @@ def profile_paths(torch, be, paths=(("fused", "1"), ("per-level", "0"))) -> None
                 be.run_transition(fixed_seeds=SEEDS)
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels, by_name = _device_kernels(torch, prof)
         if not kernels:
             raise AssertionError(f"profile {label}: the profiler recorded no device kernel")
-        by_name: dict = {}
-        for e in kernels:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
         device_ms = sum(t for t, _ in by_name.values())
 
         def count(*words):
@@ -1359,6 +1753,11 @@ def _kernels_line(kres: dict, counts: dict) -> list:
         # no TPU kernel: the work the JAX package does on the host through libjpeg
         "J1": ("jpeg_fdct_quant (libjpeg's islow DCT and quantize, from I420 or RGB)",
                "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:66"),
+        # the same entry on RGB frames (libjpeg's color conversion and 2x2
+        # downsampling first): movie frames on the pixel path and
+        # write_imgs_transition's keyframes, which the JAX package saves with PIL
+        "J1_rgb": ("jpeg_fdct_quant, RGB route (color conversion, 2x2 downsampling, DCT, quantize)",
+                   "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/engine/blending.py:1761"),
         "J2": ("jpeg_coef_lerp (an in-between frame's coefficients)", "latentblending_tpu_torch/csrc/jpeg.cu",
                "latentblending_tpu/video/_jpeg_lerp.py:107"),
         "J3": ("jpeg_huffman (baseline Huffman coding and byte stuffing: 4 launches a count)",
@@ -1392,8 +1791,9 @@ def main() -> int:
         return 2
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
     print(f"card: {_card_line()}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from latentblending_tpu_torch.precision import disable_tf32
+
+    disable_tf32()  # the port's scripts make the same call
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
     from latentblending_tpu_torch.ops import _build
@@ -1418,11 +1818,14 @@ def main() -> int:
     if unet_params != 2_567_463_684:
         raise AssertionError(f"UNet has {unet_params} parameters, not SDXL's 2567463684")
     print(f"allocated before the main path: {torch.cuda.memory_allocated()} bytes", flush=True)
-    counts = main_path(torch, be)
+    counts, nlpd_walls = main_path(torch, be)
     profile_paths(torch, be)
     movie = movie_phase(torch, be)
     counts.update(movie["counts"])
     kres.update(movie["kres"])
+    ref = reference_api_phase(torch, be, nlpd_walls)
+    counts.update(ref["counts"])
+    kres.update(ref["kres"])
     be.tree_latents, be._imgs_dev, be.tree_final_imgs = [None, None], [], []
     torch.cuda.empty_cache()
     counts.update(image_phase(torch, be.dh))

@@ -21,7 +21,7 @@ model `predict_transition_time`):
   (one batch of 2 when they are independent), then each injection level
   as rounds of sibling stems — placements by predicted gap splitting, one
   batched parental mix (K1), one batched denoise, one batched VAE decode
-  and, under the measured placement policy, one batched NLPD pass over all
+  and, under the measured placement policy, one batched similarity pass over all
   gaps between rounds (the predictive policy adopts the predicted gap
   values instead and synchronizes once, after the last round).
 
@@ -37,7 +37,15 @@ forward-noised trajectory stands in for that edge's denoise.
 `run_movie_transition` runs the transition and writes its movie while
 later keyframes still stream to the host; `write_movie_transition` writes
 the movie of a finished tree. Both encode on the holder's device
-(video/writer.py). LPIPS is not ported yet (ROADMAP.md).
+(video/writer.py); write_imgs_transition writes the keyframes as JPEGs
+(video/jpeg.py) beside their settings (lowres.yaml).
+
+The gap metric is NLPD (models/perceptual.py) or LPIPS (models/lpips.py),
+chosen as the JAX package chooses it. The reference's single-branch loop
+is here too: compute_latents1/2, get_mixing_parameters,
+compute_latents_mix, insert_into_tree, get_tree_similarities,
+run_diffusion and compute_preview_images (one batched denoise and decode
+for N preview seeds).
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 
 from latentblending_tpu_torch.engine.config import EngineConfig
+from latentblending_tpu_torch.models.lpips import LPIPSScorer
 from latentblending_tpu_torch.models.perceptual import NLPDScorer
 from latentblending_tpu_torch.ops.interp import interpolate_linear_pytree
 from latentblending_tpu_torch.ops.schedules import (
@@ -147,30 +156,43 @@ def _parental_mix(p1: torch.Tensor, p2: torch.Tensor, fract: torch.Tensor) -> to
 
 _COST_MODELS = ("batched", "reference")
 _PLACEMENT_POLICIES = ("measured", "predictive")
+_METRICS = ("lpips", "nlpd")
 
 
 class BlendingEngine:
     def __init__(
         self,
         dh: SDXLHolder,
+        do_compile: bool = False,
         guidance_scale_mid_damper: float = 0.5,
         mid_compression_scaler: float = 1.2,
         stem_batch: int = 0,
+        lpips_params=None,
         run_benchmark: Optional[bool] = None,
         cost_model: str = "batched",
         config: Optional[EngineConfig] = None,
+        similarity_metric: Optional[str] = None,
     ):
-        """stem_batch: stems of a level per batched round (0: the whole
-        level; 1: the reference's one stem at a time). run_benchmark
-        (default: on base engines, whose time-based plan reads the step
-        costs): measure them now. cost_model: 'batched' times the B=2 edge
-        denoise and decode the run itself uses; 'reference' the
-        reference's single-branch step. config: an EngineConfig applied
-        last."""
+        """The JAX engine's arguments, in its order. do_compile: accepted
+        and ignored, as there. stem_batch: stems of a level per batched
+        round (0: the whole level; 1: the reference's one stem at a time).
+        lpips_params: LPIPS weights, a state dict under the `lpips`
+        package's names (models/lpips.py). run_benchmark (default: on base
+        engines, whose time-based plan reads the step costs): measure them
+        now. cost_model: 'batched' times the B=2 edge denoise and decode the
+        run itself uses; 'reference' the reference's single-branch step.
+        config: an EngineConfig applied last. similarity_metric: 'lpips' or
+        'nlpd'; None takes 'lpips' when weights are given, else 'nlpd' (a
+        weight-free metric beats the random LPIPS stand-in); 'lpips' with no
+        weights warns and uses the stand-in."""
         if not 0.0 < guidance_scale_mid_damper <= 1.0:
             raise ValueError(f"guidance_scale_mid_damper must be in (0,1], got {guidance_scale_mid_damper}")
         if cost_model not in _COST_MODELS:
             raise ValueError(f"cost_model must be one of {_COST_MODELS}, got {cost_model!r}")
+        if similarity_metric is None:
+            similarity_metric = "lpips" if lpips_params is not None else "nlpd"
+        if similarity_metric not in _METRICS:
+            raise ValueError(f"similarity_metric must be one of {_METRICS}, got {similarity_metric!r}")
         self.dh = dh
         self.guidance_scale_mid_damper = guidance_scale_mid_damper
         self.mid_compression_scaler = mid_compression_scaler
@@ -181,8 +203,9 @@ class BlendingEngine:
         # device read between levels (and, for a multi-level plan, the
         # segmented fused transition)
         self.placement_policy = "measured"
-        # NLPD is the only metric of the port (LPIPS is not ported)
-        self.similarity_metric = "nlpd"
+        self.similarity_metric = similarity_metric
+        # kept so that apply_config can switch back to 'lpips' with them
+        self._lpips_params = lpips_params
         self.seed1 = 0
         self.seed2 = 0
         self.prompt1 = ""
@@ -234,7 +257,13 @@ class BlendingEngine:
 
         self.set_guidance_scale()
         self.set_guidance_rescale()
-        self.lpips = NLPDScorer()
+        if similarity_metric == "lpips" and lpips_params is None:
+            log.warning(
+                "similarity_metric='lpips' requested without weights — using the random-feature stand-in "
+                "(valid for relative gap ranking only). Omit similarity_metric (or pass 'nlpd') for the "
+                "deterministic weight-free metric."
+            )
+        self.lpips = self._scorer(similarity_metric)
         self.set_prompt1("")
         self.set_prompt2("")
         self.set_branch1_crossfeed()
@@ -290,12 +319,19 @@ class BlendingEngine:
             similarity_metric=self.similarity_metric,
         )
 
+    def _scorer(self, metric: str):
+        """The gap metric's scorer on the holder's device."""
+        if metric == "nlpd":
+            return NLPDScorer(device=self.dh.device)
+        return LPIPSScorer(params=self._lpips_params, device=self.dh.device)
+
     def apply_config(self, cfg: EngineConfig) -> None:
         """Apply an EngineConfig through the setters (None fields keep the
-        model's defaults). similarity_metric 'lpips' raises: LPIPS is not
-        ported."""
-        if cfg.similarity_metric not in (None, "nlpd"):
-            raise NotImplementedError(f"similarity_metric {cfg.similarity_metric!r}: the port has NLPD only")
+        model's defaults). A similarity_metric other than the engine's
+        switches the scorer; 'lpips' takes the weights the constructor was
+        given (the random stand-in without)."""
+        if cfg.similarity_metric not in (None,) + _METRICS:
+            raise ValueError(f"similarity_metric must be one of {_METRICS}, got {cfg.similarity_metric!r}")
         if cfg.cost_model not in _COST_MODELS:
             raise ValueError(f"cost_model must be one of {_COST_MODELS}, got {cfg.cost_model!r}")
         if cfg.width is not None and cfg.height is not None:
@@ -314,6 +350,9 @@ class BlendingEngine:
         self.stem_batch = int(cfg.stem_batch)
         self.cost_model = cfg.cost_model
         self.placement_policy = cfg.placement_policy
+        if cfg.similarity_metric is not None and cfg.similarity_metric != self.similarity_metric:
+            self.similarity_metric = cfg.similarity_metric
+            self.lpips = self._scorer(cfg.similarity_metric)
         if cfg.num_inference_steps is not None:
             self.set_num_inference_steps(cfg.num_inference_steps)
         self.set_branching(cfg.depth_strength, cfg.t_compute_max_allowed, cfg.nmb_max_branches)
@@ -536,6 +575,13 @@ class BlendingEngine:
     def set_negative_prompt(self, negative_prompt: str):
         self.negative_prompt = negative_prompt
         self.dh.set_negative_prompt(negative_prompt)
+
+    def set_guidance_mid_dampening(self, fract_mixing: float):
+        """The guidance of a branch at fract_mixing (dampened towards the
+        middle) for the single-branch calls that follow."""
+        g = guidance_mid_dampening(fract_mixing, self.guidance_scale_base, self.guidance_scale_mid_damper)
+        self.guidance_scale = g
+        self.dh.guidance_scale = g
 
     def _guidance_at(self, fract_mixing: float) -> float:
         return guidance_mid_dampening(fract_mixing, self.guidance_scale_base, self.guidance_scale_mid_damper)
@@ -1216,6 +1262,19 @@ class BlendingEngine:
             return self.dh.latent2image(out[-1])
         return out
 
+    @torch.no_grad()
+    def compute_preview_images(self, seeds: List[int]) -> list:
+        """Preview keyframes of prompt1, one per seed, in seed order: ONE
+        batched denoise and ONE batched decode (the reference's UI computes
+        them one by one). Leaves seed1/seed2 and the tree as they were."""
+        if not seeds:
+            return []
+        lat0 = torch.cat([self.get_noise(int(s)) for s in seeds], dim=0)
+        cond = self._stack_conditionings([0.0] * len(seeds))
+        g = torch.tensor([self._guidance_at(0.0)] * len(seeds), dtype=torch.float32)
+        traj = self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g)
+        return self.dh.latents2images_batched(traj[-1])
+
     def _compute_edge_latents_batched(self):
         """Both keyframe trajectories as one batch of 2."""
         lat0 = torch.cat([self.get_noise(self.seed1), self.get_noise(self.seed2)], dim=0)
@@ -1260,11 +1319,38 @@ class BlendingEngine:
             b_parent2 += 1
         return b_parent1, b_parent2
 
+    def get_mixing_parameters(self, idx_injection: int):
+        """The reference's single placement: (fract_mixing, b_parent1,
+        b_parent2) of the next branch at idx_injection."""
+        return self._plan_placements(1, idx_injection)[0][0]
+
     def _branch_traj_array(self, b: int) -> torch.Tensor:
         """Tree branch b as a stacked [N, h, w, 4] tensor (None steps → zeros)."""
         entries = self.tree_latents[b]
         zero = torch.zeros_like(entries[-1][0])
         return torch.stack([zero if e is None else e[0] for e in entries[: self.num_inference_steps]], dim=0)
+
+    def _stem_trajectories(self, placements: list, idx_injection: int, cond, guidance: torch.Tensor) -> torch.Tensor:
+        """The denoised trajectories [N - idx_injection, k, h, w, 4] of k
+        stems placed at (fract_mixing, b_parent1, b_parent2): their
+        parents' trajectories slerped per step (K1), each stem started from
+        the mix at idx_injection - 1 and crossfed towards it after, under
+        the stems' conditioning and guidance."""
+        p1 = torch.stack([self._branch_traj_array(b1) for _, b1, _ in placements], dim=1)
+        p2 = torch.stack([self._branch_traj_array(b2) for _, _, b2 in placements], dim=1)
+        fract_parental = torch.tensor(
+            [(f - self.tree_fracts[b1]) / (self.tree_fracts[b2] - self.tree_fracts[b1]) for f, b1, b2 in placements],
+            dtype=torch.float32,
+        )
+        mix_traj = _parental_mix(p1, p2, fract_parental)  # [N, k, h, w, 4]
+        coeffs = parental_crossfeed_coeffs(
+            self.num_inference_steps, idx_injection, self.parental_crossfeed_power, self.parental_crossfeed_range,
+            self.parental_crossfeed_decay,
+        )
+        return self.dh.run_diffusion_batched(
+            cond, mix_traj[idx_injection - 1], idx_start=idx_injection, mix_traj=mix_traj, mixing_coeffs=coeffs,
+            guidance_scale=guidance,
+        )
 
     def _run_stem_round(self, k: int, idx_injection: int, defer_sims: bool = False, predicted: bool = False,
                         sync: bool = True):
@@ -1279,25 +1365,11 @@ class BlendingEngine:
         sample: its wall would not be its own)."""
         N = self.num_inference_steps
         placements, plan_sims = self._plan_placements(k, idx_injection)
-        p1 = torch.stack([self._branch_traj_array(b1) for _, b1, _ in placements], dim=1)
-        p2 = torch.stack([self._branch_traj_array(b2) for _, _, b2 in placements], dim=1)
-        fract_parental = torch.tensor(
-            [(f - self.tree_fracts[b1]) / (self.tree_fracts[b2] - self.tree_fracts[b1]) for f, b1, b2 in placements],
-            dtype=torch.float32,
-        )
-        mix_traj = _parental_mix(p1, p2, fract_parental)  # [N, k, h, w, 4]
-        coeffs = parental_crossfeed_coeffs(
-            N, idx_injection, self.parental_crossfeed_power, self.parental_crossfeed_range,
-            self.parental_crossfeed_decay,
-        )
         cond = self._stack_conditionings([f for f, _, _ in placements])
         guidance = torch.tensor([self._guidance_at(f) for f, _, _ in placements], dtype=torch.float32)
         with self.timer.phase("denoise"):
             t0 = time.time()
-            traj = self.dh.run_diffusion_batched(
-                cond, mix_traj[idx_injection - 1], idx_start=idx_injection, mix_traj=mix_traj,
-                mixing_coeffs=coeffs, guidance_scale=guidance,
-            )  # [N - idx_injection, k, h, w, 4]
+            traj = self._stem_trajectories(placements, idx_injection, cond, guidance)
             if sync:
                 _sync(traj)
                 if self.dh.last_run_was_warm and not predicted:
@@ -1338,6 +1410,42 @@ class BlendingEngine:
             elif not predicted:
                 self.tree_similarities = self._batched_similarities()
 
+    def insert_into_tree(self, fract_mixing: float, idx_injection: int, list_latents: list, img_insert=None):
+        """The reference's single-branch insert: decode the branch's last
+        latent (unless img_insert, a uint8 keyframe, is given), score it
+        against its two neighbours and insert it in fract order. The
+        device keyframes (_imgs_dev) take it only while they are aligned
+        with tree_final_imgs; otherwise they are dropped, and
+        get_tree_similarities scores the host keyframes."""
+        if img_insert is None:
+            img_insert = self.dh.latent2image(list_latents[-1])
+        b_parent1, b_parent2 = get_closest_idx(fract_mixing, self.tree_fracts)
+        left_sim = self.get_lpips_similarity(img_insert, self.tree_final_imgs[b_parent1])
+        right_sim = self.get_lpips_similarity(img_insert, self.tree_final_imgs[b_parent2])
+        idx_insert = b_parent1 + 1
+        self.tree_latents.insert(idx_insert, list_latents)
+        self.tree_final_imgs.insert(idx_insert, img_insert)
+        if len(self._imgs_dev) == len(self.tree_final_imgs) - 1:
+            self._imgs_dev.insert(idx_insert, self.lpips._prep(img_insert, self.dh.device)[0])
+        else:
+            self._imgs_dev = []
+        self.tree_fracts.insert(idx_insert, fract_mixing)
+        self.tree_idx_injection.insert(idx_insert, idx_injection)
+        self.tree_similarities[b_parent1] = left_sim
+        self.tree_similarities.insert(idx_insert, right_sim)
+
+    @torch.no_grad()
+    def compute_latents_mix(self, fract_mixing: float, b_parent1: int, b_parent2: int, idx_injection: int) -> list:
+        """The reference's single-branch trajectory at fract_mixing: its
+        parents' trajectories slerped per step (K1), the branch started
+        from the mix at idx_injection - 1 and crossfed towards the mix
+        after; the engine's current guidance (set_guidance_mid_dampening).
+        Returns the full-length list, None before idx_injection."""
+        cond = self.dh._conditioning(self.get_mixed_conditioning(fract_mixing), 1)
+        traj = self._stem_trajectories([(fract_mixing, b_parent1, b_parent2)], idx_injection, cond,
+                                       torch.tensor([self.guidance_scale], dtype=torch.float32))
+        return [None] * idx_injection + list(traj)
+
     # ----------------------------------------------------- conditioning mix
 
     def get_mixed_conditioning(self, fract_mixing: float):
@@ -1360,7 +1468,36 @@ class BlendingEngine:
             neg_time_ids=tids,
         )
 
+    def get_text_embeddings(self, prompt: str):
+        return self.dh.get_text_embedding(prompt)
+
+    def run_diffusion(self, list_conditionings, latents_start=None, idx_start: int = 0, list_latents_mixing=None,
+                      mixing_coeffs=0.0, return_image: bool = False):
+        """The reference's engine-level denoise: the holder's run_diffusion
+        at the engine's step count and current guidance."""
+        self.dh.set_num_inference_steps(self.num_inference_steps)
+        self.dh.guidance_scale = self.guidance_scale
+        te = list_conditionings[0] if isinstance(list_conditionings, list) else list_conditionings
+        return self.dh.run_diffusion(te, latents_start, idx_start=idx_start, list_latents_mixing=list_latents_mixing,
+                                     mixing_coeffs=mixing_coeffs, return_image=return_image)
+
     # ---------------------------------------------------------------- output
+
+    def write_imgs_transition(self, dp_img: str):
+        """The keyframes as lowres_img_NNNN.jpg (quality 75, 4:2:0: PIL's
+        defaults, which the JAX package writes with), encoded on the
+        holder's device (video/jpeg.encode_rgb: J1's RGB route and J3), and
+        the engine's settings as lowres.yaml."""
+        from latentblending_tpu_torch.video.jpeg import encode_rgb
+        from latentblending_tpu_torch.yaml_text import yml_save
+
+        os.makedirs(dp_img, exist_ok=True)
+        if self.tree_final_imgs:
+            frames = torch.stack([torch.as_tensor(np.asarray(im)) for im in self.tree_final_imgs])
+            for i, data in enumerate(encode_rgb(frames.to(self.dh.device), quality=75)):
+                with open(os.path.join(dp_img, f"lowres_img_{str(i).zfill(4)}.jpg"), "wb") as f:
+                    f.write(data)
+        yml_save(os.path.join(dp_img, "lowres.yaml"), self.get_state_dict())
 
     def _movie_saver(self, fp_movie: str, fps: int):
         from latentblending_tpu_torch.video.writer import MovieSaver
@@ -1465,14 +1602,32 @@ class BlendingEngine:
 
     # ------------------------------------------------------------- similarity
 
+    def get_lpips_similarity(self, imgA, imgB) -> float:
+        """The gap metric between two uint8 keyframes, on the holder's device."""
+        return self.lpips.distance(imgA, imgB)
+
+    def get_closest_idx(self, fract_mixing: float):
+        return get_closest_idx(fract_mixing, self.tree_fracts)
+
+    def get_tree_similarities(self) -> list[float]:
+        """Every adjacent-keyframe distance: from the device keyframes when
+        they are aligned with tree_final_imgs, else from the host ones."""
+        if len(self._imgs_dev) == len(self.tree_final_imgs) and len(self._imgs_dev) >= 2:
+            return self._batched_similarities()
+        if len(self.tree_final_imgs) < 2:
+            return []
+        imgs = self.lpips._prep(np.stack([np.asarray(im) for im in self.tree_final_imgs]), self.dh.device)
+        return self.lpips.distance_batch(imgs[:-1], imgs[1:]).double().cpu().tolist()
+
     def _dispatch_similarities(self) -> Optional[torch.Tensor]:
-        """All adjacent-keyframe NLPD distances as one batched call, left on
-        the device ([K-1]); None with fewer than 2 keyframes."""
+        """All adjacent-keyframe distances (the engine's metric) as one
+        batched call, left on the device ([K-1]); None with fewer than 2
+        keyframes."""
         if len(self._imgs_dev) < 2:
             return None
         return self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]), torch.stack(self._imgs_dev[1:]))
 
     def _batched_similarities(self) -> list[float]:
-        """All adjacent-keyframe NLPD distances, on the host."""
+        """All adjacent-keyframe distances, on the host."""
         d = self._dispatch_similarities()
         return [] if d is None else d.double().cpu().tolist()

@@ -11,6 +11,8 @@ jax.image.resize(method="linear") computes for a 2× upsample.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -63,19 +65,54 @@ def nlpd_distance(img0: torch.Tensor, img1: torch.Tensor, levels: int = 5) -> to
     return total / levels
 
 
-class NLPDScorer:
-    """distance(uint8 imgs) → float; distance_batch([-1,1] [B,H,W,3] pairs) → [B]."""
+def prep_uint8(img, device=None) -> torch.Tensor:
+    """uint8 image(s) [H,W,3] or [B,H,W,3] (anything np.asarray takes) →
+    float32 [B,H,W,3] in [-1,1] on `device`."""
+    x = torch.as_tensor(np.asarray(img), dtype=torch.float32, device=device) / 255.0 * 2.0 - 1.0
+    return x[None] if x.ndim == 3 else x
 
-    def __init__(self, levels: int = 5):
+
+def staging_device(device: Optional[torch.device]) -> torch.device:
+    """Where a scorer's distance() stages its uint8 images: the device it
+    was built for, else the card (no CPU fallback: pass device="cpu")."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("scorer: no CUDA device; build it with device=\"cpu\" to score on the CPU")
+    return torch.device("cuda")
+
+
+def pair_device(device: Optional[torch.device], imgs_a: torch.Tensor, imgs_b: torch.Tensor) -> torch.device:
+    """The device distance_batch computes on: its inputs' own. A scorer
+    built for a device refuses inputs that lie elsewhere rather than copy
+    them."""
+    d = imgs_a.device
+    if imgs_b.device != d:
+        raise ValueError(f"scorer: pairs on {d} and {imgs_b.device}")
+    if device is not None and (device.type != d.type or device.index not in (None, d.index)):
+        raise ValueError(f"scorer built for {device} was given images on {d}")
+    return d
+
+
+class NLPDScorer:
+    """distance(uint8 imgs) → float; distance_batch([-1,1] [B,H,W,3] pairs) → [B].
+
+    distance_batch computes on its inputs' device; distance stages its
+    images on `device` (the engine passes its holder's), the card when
+    None."""
+
+    def __init__(self, levels: int = 5, device=None):
         self.levels = int(levels)
+        self.device = None if device is None else torch.device(device)
 
     @staticmethod
     def _prep(img, device=None) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(img), dtype=torch.float32, device=device) / 255.0 * 2.0 - 1.0
-        return x[None] if x.ndim == 3 else x
+        return prep_uint8(img, device)
 
     def distance(self, img_a, img_b) -> float:
-        return float(nlpd_distance(self._prep(img_a), self._prep(img_b), self.levels)[0])
+        dev = staging_device(self.device)
+        return float(self.distance_batch(self._prep(img_a, dev), self._prep(img_b, dev))[0])
 
     def distance_batch(self, imgs_a: torch.Tensor, imgs_b: torch.Tensor) -> torch.Tensor:
+        pair_device(self.device, imgs_a, imgs_b)
         return nlpd_distance(imgs_a, imgs_b, self.levels)

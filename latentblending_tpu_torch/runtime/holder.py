@@ -15,6 +15,7 @@ jax.random draws, so tests hand both packages the same draws.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Any, Optional
@@ -26,7 +27,7 @@ import torch.nn as nn
 from latentblending_tpu_torch.models import configs as C
 from latentblending_tpu_torch.models.clip import CLIPTextEncoder
 from latentblending_tpu_torch.models.layers import cast_keep_norms_f32, init_like_jax_
-from latentblending_tpu_torch.models.tokenizer import HashTokenizer
+from latentblending_tpu_torch.models.tokenizer import CLIPTokenizer, HashTokenizer
 from latentblending_tpu_torch.models.unet import UNet2DCondition
 from latentblending_tpu_torch.models.vae import VAE
 from latentblending_tpu_torch.ops.resize import resize_area
@@ -36,6 +37,7 @@ from latentblending_tpu_torch.ops.scheduler import (
     SDXL_TURBO_SCHEDULER,
     SchedulerState,
     make_schedule,
+    scheduler_config_from_hf,
 )
 from latentblending_tpu_torch.runtime.denoise import (
     Conditioning,
@@ -193,7 +195,74 @@ class SDXLHolder:
             m.load_state_dict(state_dicts[name], strict=True)
         return cls(spec, mods, dtype=dtype, vae_dtype=vae_dtype, device=device, **kw)
 
+    @classmethod
+    def from_pretrained(cls, snapshot_dir: str, spec: ModelSpec | str | None = None,
+                        dtype: torch.dtype = torch.bfloat16, vae_dtype: Optional[torch.dtype] = None,
+                        device="cuda", **kw) -> "SDXLHolder":
+        """Holder from a HF snapshot directory (unet/, vae/, text_encoder/,
+        text_encoder_2/ with .safetensors; scheduler/scheduler_config.json,
+        tokenizer/ and tokenizer_2/ where present), as the JAX package's
+        from_pretrained loads it: the spec is SDXL-Turbo when "turbo" is in
+        the directory's name, else SDXL-base; the checkpoint's scheduler
+        config overrides the spec's.
+
+        Each UNet and CLIP tensor is rounded to `dtype` on load, as the JAX
+        loader stores them; the CLIP towers keep the rounded values in
+        float32 and compute in float32 (the JAX package's bf16 storage with
+        f32 compute). The VAE loads as stored, in vae_dtype (None: float32).
+        Loading is strict, but for the two CLIP keys real checkpoints carry
+        and the tower does not use (models/weights.CLIP_UNUSED:
+        `logit_scale`, which the JAX converter drops, and
+        `text_model.embeddings.position_ids`, a buffer of older transformers
+        checkpoints), which are not read."""
+        from latentblending_tpu_torch.models.weights import load_clip, load_sdxl_unet, load_sdxl_vae
+
+        if spec is None:
+            spec = SDXL_TURBO if "turbo" in os.fspath(snapshot_dir).lower() else SDXL_BASE
+        spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
+        sched_fp = os.path.join(snapshot_dir, "scheduler", "scheduler_config.json")
+        if os.path.isfile(sched_fp):
+            with open(sched_fp) as f:
+                spec = dataclasses.replace(spec, scheduler=scheduler_config_from_hf(json.load(f), spec.scheduler))
+        device = _holder_device(device)
+
+        def rounded(sd: dict) -> dict:
+            return {k: v.to(dtype) for k, v in sd.items()}
+
+        state_dicts = {"unet": rounded(load_sdxl_unet(snapshot_dir)), "vae": load_sdxl_vae(snapshot_dir),
+                       "clip1": rounded(load_clip(snapshot_dir, "text_encoder")),
+                       "clip2": rounded(load_clip(snapshot_dir, "text_encoder_2"))}
+        mods = build_modules(spec, dtype, device, vae_dtype)
+        for name, m in mods.items():
+            m.load_state_dict(state_dicts.pop(name), strict=True)
+        toks = [CLIPTokenizer.from_dir(os.path.join(snapshot_dir, d))
+                if os.path.isdir(os.path.join(snapshot_dir, d)) else None for d in ("tokenizer", "tokenizer_2")]
+        return cls(spec, mods, tokenizer1=toks[0], tokenizer2=toks[1], dtype=dtype, vae_dtype=vae_dtype,
+                   device=device, **kw)
+
     # ----------------------------------------------------------------- state
+
+    def init_types(self) -> dict:
+        """The reference's runtime dtype probe and turbo detection, here
+        static properties of the spec and the holder."""
+        return {"dtype": self.dtype, "is_sdxl_turbo": self.is_sdxl_turbo}
+
+    def prepare_mixing(self, mixing_coeffs, list_latents_mixing) -> list:
+        """mixing_coeffs (a float, or one value per step) → a per-step list;
+        raises ValueError if its length, or that of a mixing trajectory it
+        needs, is not num_inference_steps."""
+        N = self.num_inference_steps
+        if isinstance(mixing_coeffs, float):
+            coeffs = N * [mixing_coeffs]
+        elif isinstance(mixing_coeffs, (list, tuple, np.ndarray)):
+            if len(mixing_coeffs) != N:
+                raise ValueError(f"len(mixing_coeffs) {len(mixing_coeffs)} != num_inference_steps {N}")
+            coeffs = list(mixing_coeffs)
+        else:
+            raise ValueError("mixing_coeffs should be float or list with len=num_inference_steps")
+        if np.sum(coeffs) > 0 and len(list_latents_mixing) != N:
+            raise ValueError(f"len(list_latents_mixing) {len(list_latents_mixing)} != num_inference_steps {N}")
+        return coeffs
 
     def set_num_inference_steps(self, num_inference_steps: int):
         self.num_inference_steps = int(num_inference_steps)
@@ -572,6 +641,9 @@ class SDXLHolder:
         if return_image:
             return self.latent2image(out[-1])
         return out
+
+    # the reference's name for the SDXL loop
+    run_diffusion_sd_xl = run_diffusion
 
     # ------------------------------------------------------------- timing
 

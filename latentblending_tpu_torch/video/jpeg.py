@@ -37,8 +37,11 @@ import torch
 
 from latentblending_tpu_torch.ops import _build
 
-# one count per wrapper call that launches its kernels (J3's call launches four)
+# one count per wrapper call that launches its kernels (J3's call launches four);
+# launches_fdct_rgb counts J1's launches from RGB frames apart (they are in
+# launches_fdct too)
 launches_fdct = 0
+launches_fdct_rgb = 0
 launches_lerp = 0
 launches_huffman = 0
 
@@ -408,7 +411,7 @@ def fdct_quant(frames: torch.Tensor, quality: int, fmt: str = "i420") -> torch.T
     int16 [B, nblocks, 64] quantized coefficients (zigzag, MCU order)."""
     if not frames.is_cuda:
         return fdct_quant_reference(frames, quality, fmt)
-    global launches_fdct
+    global launches_fdct, launches_fdct_rgb
     h, w = _check_frames("fdct_quant", frames, fmt)
     _check_cuda("fdct_quant", frames)
     B = frames.shape[0]
@@ -418,6 +421,7 @@ def fdct_quant(frames: torch.Tensor, quality: int, fmt: str = "i420") -> torch.T
     _build.launch("lb_jpeg_fdct_quant", frames, _device_table("quant", frames.device, quality), out,
             B, h, w, _FMT[fmt])
     launches_fdct += 1
+    launches_fdct_rgb += fmt == "rgb"
     return out
 
 

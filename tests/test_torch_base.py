@@ -160,8 +160,11 @@ def test_config_round_trip(engines):
     assert other.get_config() == cfg
     assert (other.stem_batch, other.cost_model, other.placement_policy) == (2, "reference", "predictive")
     assert other.guidance_scale_base == 5.0 and other.num_inference_steps == STEPS
-    with pytest.raises(NotImplementedError, match="NLPD"):
-        other.apply_config(dataclasses.replace(cfg, similarity_metric="lpips"))
+    # LPIPS is ported: the config switches the metric, and an unknown one raises
+    other.apply_config(dataclasses.replace(cfg, similarity_metric="lpips"))
+    assert other.similarity_metric == "lpips" and other.get_config().similarity_metric == "lpips"
+    with pytest.raises(ValueError, match="similarity_metric"):
+        other.apply_config(dataclasses.replace(cfg, similarity_metric="ssim"))
     with pytest.raises(ValueError, match="placement_policy"):
         other.apply_config(dataclasses.replace(cfg, placement_policy="fast"))
     assert EngineConfig.defaults(False).to_dict()["num_inference_steps"] == 30

@@ -3,8 +3,10 @@ package's host modules.
 
 - The port never imports jax or flax: every module of
   latentblending_tpu_torch (the movie path's tree cache, video layer and
-  sessions included), and chip_smoke.py, imports in a subprocess in which
-  `import jax` and `import latentblending_tpu` fail.
+  sessions, LPIPS, the checkpoint reader, the YAML writer and the example
+  scripts included), and chip_smoke.py, imports in a subprocess in which
+  `import jax` and `import latentblending_tpu` fail, and so do PIL, yaml
+  and safetensors, which the card's machine lacks.
 - The copied host modules equal their originals: configs, schedules,
   utils, video/i420 and engine/config (EngineConfig) byte for byte; the tokenizer (its `regex` import moved inside the
   BPE path) and profiling (without the jax.profiler hook) by behaviour.
@@ -80,18 +82,21 @@ def _port_modules() -> list[str]:
     return mods
 
 
-# the movie path's modules (tree cache, video layer, sessions) are among them
+# the movie path's modules (tree cache, video layer, sessions) are among
+# them, and the reference-facing ones (LPIPS, checkpoint reading, YAML, apps)
 MOVIE_MODULES = ["engine.tree_cache", "engine.session", "video.frames", "video.jpeg", "video.mjpeg_mp4",
                  "video.writer"]
+REFERENCE_MODULES = ["models.lpips", "models.weights", "precision", "yaml_text", "apps.example_single_trans",
+                     "apps.example_multi_trans", "apps.example_multi_trans_json"]
 
 
 def test_port_never_imports_jax():
     mods = _port_modules()
     assert "latentblending_tpu_torch.engine.blending" in mods and len(mods) > 15
-    assert all(f"latentblending_tpu_torch.{m}" in mods for m in MOVIE_MODULES)
+    assert all(f"latentblending_tpu_torch.{m}" in mods for m in MOVIE_MODULES + REFERENCE_MODULES)
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'jaxlib', 'latentblending_tpu'):\n"
+        "for name in ('jax', 'flax', 'jaxlib', 'latentblending_tpu', 'PIL', 'yaml', 'safetensors'):\n"
         "    sys.modules[name] = None\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import importlib\n"

@@ -118,7 +118,7 @@ def test_nlpd_matches_jax():
     want = jperc.nlpd_distance(jnp.asarray(a), jnp.asarray(b))
     got = tperc.nlpd_distance(torch.from_numpy(a), torch.from_numpy(b))
     _close(got, want, rtol=1e-4, atol=1e-6)
-    scorer = tperc.NLPDScorer()
+    scorer = tperc.NLPDScorer(device="cpu")
     u = ((a[0] + 1) * 127.5).astype(np.uint8)
     assert scorer.distance(u, u) == pytest.approx(1e-6, abs=1e-6)
 
