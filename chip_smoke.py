@@ -88,7 +88,18 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    a full-width HF snapshot with a minimal safetensors writer, loaded by
    SDXLHolder.from_pretrained and held bit for bit against its source,
    then apps/example_single_trans.main on it (a 2 s movie of 60 samples);
-8. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
+8. the serving path (serving_phase) on the same engine, over HTTP:
+   apps.server.serve(MultiUserRouter({"sdxl-turbo": engine}, 4 previews))
+   on 127.0.0.1; /health, /session 512x512, /previews cold and warm with
+   exact launches (K1 slerp_rows 4, K2 40, K3 per decode chunk, J1's RGB
+   route once, J3 four times), each file fetched and decoded by the port's
+   decoder; /select and /keyframe twice, /movie (t_per_segment 2) counted
+   and warm, its MP4 read back by read_movie_frames (60 frames, its ends
+   against the keyframes in PSNR, host ms a frame); two users' /previews
+   at once (both 200, no grad_fn on the handler threads); malformed bodies
+   400, an unknown file token 403; LPIPS on 9 pairs at 1024² in model
+   calls of at most 4 pairs, with its peak requested bytes;
+9. image keyframes (image_phase) at SDXL-Turbo 512² on a holder with the
    turbo UNet and CLIP and a bf16 copy of the VAE: set_keyframe1_image on
    a 512² picture (one K3 bf16 launch, the encode) and
    run_transition(recycle_img1=True), the fused path; set_keyframe2_image
@@ -97,9 +108,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    warm with exact launches; then the same 12 latents decoded by the f32
    and the bf16 VAE at 512² and one latent at 1024² (LSB apart, ms per
    keyframe);
-9. an f32 copy of the turbo UNet (f32_unet_phase): one fused
+10. an f32 copy of the turbo UNet (f32_unet_phase): one fused
    run_transition at 512², cold and warm, K2 f32 launched steps × 10 times;
-10. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
+11. drives SDXL-base 1024² (base_phase): BlendingEngine(dh) runs
    benchmark_speed; negative prompt; set_branching(depth_strength=0.5,
    nmb_max_branches=10), the plan [15,18,21,24,27] x [3,2,1,1,1]; then the
    measured-policy per-level path, the predictive policy's segmented
@@ -111,7 +122,7 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    again in turns (b, c, a, a, c, b) with the card's clock and power, one
    profiled run of each predictive path, and the cost model's predictions
    beside the measured walls;
-11. prints one JSON line with every kernel entry's numbers (K1 rows, K1
+12. prints one JSON line with every kernel entry's numbers (K1 rows, K1
    tree step, K2 bf16 and f32, K3 f32 and bf16, J1 and its RGB route,
    J2, J3), then the final line
    {"ok": true, "device": {...}}.
@@ -1482,6 +1493,309 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
     return {"counts": counts, "kres": {"J1_rgb": [j1]}}
 
 
+# serving_phase: the decoded movie's first and last frames against the
+# engine's first and last RGB keyframes, PSNR in dB. The samples are J1/J3's
+# JPEGs of the keyframes' I420 planes at the settled quality (55-90): chroma
+# subsampling and quantization, nothing else, lie between them. Tiny-turbo's
+# noise-like keyframes on the CPU: 24.7 dB at 128x128, against 9.8 dB for
+# the first frame beside the last keyframe; SDXL-Turbo's random-weight
+# keyframes on the H100 (quality settled at 62): 22.3 dB against 9.9. So
+# each end must reach the bound and beat the other end's keyframe by
+# SERVING_PSNR_MARGIN_DB.
+SERVING_PSNR_DB = 20.0
+SERVING_PSNR_MARGIN_DB = 6.0
+SERVING_PREVIEWS = 4
+SERVING_SECONDS = 2
+LPIPS_CHUNK_PAIRS = 9
+
+
+def _http(base: str, path: str, payload=None, raw: bytes | None = None) -> tuple:
+    """(status, body bytes, content type) of a GET (payload and raw None) or
+    a POST to the local server, straight, never through a proxy."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    data = raw if raw is not None else (None if payload is None else json.dumps(payload).encode())
+    req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with opener.open(req, timeout=600) as r:
+            return r.status, r.read(), r.headers.get("Content-Type")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type")
+
+
+def _http_json(base: str, path: str, payload=None, want: int = 200) -> dict:
+    status, body, _ = _http(base, path, payload)
+    if status != want:
+        raise AssertionError(f"serving: {path} {payload} answered {status}, expected {want}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _fetch_jpegs(base: str, urls: list, hw: tuple, label: str) -> list:
+    """Each URL fetched over /files/ and decoded by the port's decoder to
+    uint8 [H, W, 3]; returns the host ms of each decode."""
+    from latentblending_tpu_torch.video import jpeg_decode
+
+    ms = []
+    for url in urls:
+        status, body, ctype = _http(base, url)
+        if status != 200 or ctype != "image/jpeg":
+            raise AssertionError(f"{label}: {url} answered {status} {ctype}")
+        t0 = time.perf_counter()
+        img = jpeg_decode.decode(body)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if img.shape != (*hw, 3) or str(img.dtype) != "uint8":
+            raise AssertionError(f"{label}: {url} decodes to {img.shape} {img.dtype}")
+    return ms
+
+
+def serving_phase(torch, be) -> dict:
+    """The serving path over HTTP at full width, on the SDXL-Turbo 512²
+    engine of the main path (random weights, bf16 UNet, f32 VAE):
+    latentblending_tpu_torch.apps.server.serve(router, port=0) on 127.0.0.1
+    over MultiUserRouter({"sdxl-turbo": engine}, nmb_preview_images=4).
+    1. /health; /session at 512x512;
+    2. /previews cold and warm, counted (sequential requests): K1 slerp_rows
+       once per step, K2 steps x 10, K3 once per decode chunk (the
+       previews' batched denoise and decode), J1 once (its RGB route, the 4
+       previews in one call), J3 four times; each of the 4 files fetched
+       over /files/<token> and decoded by the port's decoder to
+       [512,512,3] uint8;
+    3. /select and /keyframe twice (new previews between), then /movie with
+       t_per_segment=2, counted and then again warm: K1-K3 as the fused
+       transition launches them (LB_FUSED=1), J1 per keyframe and J3 per
+       sample plus the quality probes, J2 per in-between frame; the MP4
+       fetched, round(2 x 30) frames read back by read_movie_frames, the
+       first and last at SERVING_PSNR_DB or more against the engine's first
+       and last keyframes, and SERVING_PSNR_MARGIN_DB above the other end's;
+       host ms a decoded frame;
+    4. two users' /previews sent at once from two threads: both 200 with 4
+       decodable JPEGs, and every decode output on the handler threads
+       without a grad_fn (grad mode is thread-local);
+    5. each malformed body gets 400, an unknown /files/ token 403;
+    6. LPIPS on 9 pairs at 1024² (seeded random weights): the pairs reach
+       the model in calls of at most 4; peak requested bytes above those
+       held before, beside PR 10's unchunked 8.45 GB, and the pass's time.
+    Prints the warm /previews and /movie walls (host clock) and the phase's
+    peak memory. Returns the launch counts of each counted request."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from latentblending_tpu_torch.apps.gradio_ui import MultiUserRouter
+    from latentblending_tpu_torch.apps.server import serve
+    from latentblending_tpu_torch.models.lpips import LPIPSScorer, random_lpips_state_dict
+    from latentblending_tpu_torch.video.writer import read_movie_frames
+
+    dh = be.dh
+    H, W = dh.height_img, dh.width_img
+    N = dh.num_inference_steps
+    k2 = K2_PER_EVAL[H]
+    counts: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    workdir = tempfile.mkdtemp(prefix="lb_serve_")
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the router writes its movies and project files here
+    router = MultiUserRouter({"sdxl-turbo": be}, nmb_preview_images=SERVING_PREVIEWS)
+    np.random.seed(12)  # the router draws the preview seeds from numpy's global generator
+    httpd = serve(router, port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        health = _http_json(base, "/health")
+        if health != {"ok": True, "models": ["sdxl-turbo"]}:
+            raise AssertionError(f"serving: /health {health}")
+        uid = _http_json(base, "/session", {"model": "sdxl-turbo", "width": W, "height": H})["user_id"]
+
+        # ---- previews, counted, cold and warm
+        want_prev = dict.fromkeys(_COUNT_KEYS, 0)
+        want_prev.update({"K1_rows": N, "K2": N * k2, "K3": _ceil(SERVING_PREVIEWS, dh.decode_chunk),
+                          "J1": 1, "J1_rgb": 1, "J3": SERVING_PREVIEWS})
+        prev_walls, decode_ms = [], []
+        for run in ("cold", "warm"):
+            _zero_counts()
+            t0 = time.perf_counter()
+            r = _http_json(base, "/previews", {"user_id": uid, "prompt": "photo of a lighthouse in a storm",
+                                               "negative_prompt": "blurry, low quality"})
+            prev_walls.append(time.perf_counter() - t0)
+            c = counts[f"serving /previews ({run})"] = _read_counts()
+            _expect_counts(c, want_prev, f"serving /previews ({run})")
+            if len(r["images"]) != SERVING_PREVIEWS:
+                raise AssertionError(f"serving: /previews gave {r['images']}")
+            decode_ms += _fetch_jpegs(base, r["images"], (H, W), f"serving /previews ({run})")
+        print(f"serving /previews ({SERVING_PREVIEWS} at {H}x{W}): walls cold {prev_walls[0]:.4f} s, warm "
+              f"{prev_walls[1]:.4f} s (host clock, request to response); launches {json.dumps(c)} (as expected); "
+              f"each file decoded by the port's decoder, {np.mean(decode_ms):.2f} ms a preview", flush=True)
+
+        # ---- two keyframes, then the movie
+        _http_json(base, "/select", {"user_id": uid, "index": 0})
+        _http_json(base, "/keyframe", {"user_id": uid})
+        _http_json(base, "/previews", {"user_id": uid, "prompt": "photo of a calm sea at dawn, soft light",
+                                       "negative_prompt": "blurry, low quality"})
+        _http_json(base, "/select", {"user_id": uid, "index": 2})
+        if len(_http_json(base, "/keyframe", {"user_id": uid})["movie"]) != 2:
+            raise AssertionError("serving: /keyframe did not give 2 keyframes")
+        target = int(round(SERVING_SECONDS * MOVIE_FPS))
+        movie_walls = []
+        with _lb_fused("1"):
+            for run in ("cold", "warm"):
+                _zero_counts()
+                t0 = time.perf_counter()
+                r = _http_json(base, "/movie", {"user_id": uid, "t_per_segment": SERVING_SECONDS})
+                movie_walls.append(time.perf_counter() - t0)
+                c = _read_counts()
+                if run == "cold":
+                    counts["serving /movie"] = c
+                k_want = _expected_launches(be, "fused", k2)
+                kk = [k for k in _COUNT_KEYS if k[0] == "K"]
+                _expect_counts({k: c[k] for k in kk}, {k: k_want[k] for k in kk}, f"serving /movie ({run}, K1-K3)")
+                n_kf = len(be.tree_final_imgs)
+                probes = _check_jpeg_counts(c, n_kf, target, target - n_kf, f"serving /movie ({run})")
+        status, mp4, ctype = _http(base, r["movie_url"])
+        if status != 200 or ctype != "video/mp4" or r["json_url"] is None:
+            raise AssertionError(f"serving: movie {status} {ctype}, project {r['json_url']}")
+        fp = os.path.join(workdir, "served.mp4")
+        with open(fp, "wb") as f:
+            f.write(mp4)
+        t0 = time.perf_counter()
+        frames = read_movie_frames(fp)
+        read_s = time.perf_counter() - t0
+        if len(frames) != target or any(f.shape != (H, W, 3) for f in frames):
+            raise AssertionError(f"serving: read_movie_frames gave {len(frames)} frames, expected {target}")
+        kfs = be.tree_final_imgs
+        psnr = {"first": _psnr(frames[0], kfs[0]), "last": _psnr(frames[-1], kfs[-1]),
+                "first vs last keyframe": _psnr(frames[0], kfs[-1])}
+        psnr["last vs first keyframe"] = _psnr(frames[-1], kfs[0])
+        if (min(psnr["first"], psnr["last"]) < SERVING_PSNR_DB
+                or psnr["first"] < psnr["first vs last keyframe"] + SERVING_PSNR_MARGIN_DB
+                or psnr["last"] < psnr["last vs first keyframe"] + SERVING_PSNR_MARGIN_DB):
+            raise AssertionError(f"serving: movie ends against the keyframes {psnr} (bound {SERVING_PSNR_DB} dB, "
+                                 f"margin {SERVING_PSNR_MARGIN_DB} dB)")
+        print(f"serving /movie (2 keyframes, t_per_segment {SERVING_SECONDS}): walls cold {movie_walls[0]:.4f} s, "
+              f"warm {movie_walls[1]:.4f} s (host clock); {len(mp4)} bytes, settled quality "
+              f"{be.last_jpeg_quality} ({probes} probes), launches {json.dumps(counts['serving /movie'])} (as "
+              f"expected); read_movie_frames: {len(frames)} frames in {read_s:.3f} s, "
+              f"{read_s / len(frames) * 1e3:.2f} ms a frame (host); PSNR dB {json.dumps(psnr)} "
+              f"(bound {SERVING_PSNR_DB}, margin {SERVING_PSNR_MARGIN_DB})", flush=True)
+
+        # ---- two users at once
+        users = [_http_json(base, "/session", {"width": W, "height": H})["user_id"] for _ in range(2)]
+        seen, lock = [], threading.Lock()
+        decode = dh.decode_to_pm1_batched
+
+        def watched(latents):
+            out = decode(latents)
+            with lock:
+                seen.append((threading.current_thread().name, torch.is_grad_enabled(), out.grad_fn is None,
+                             out.requires_grad))
+            return out
+
+        dh.decode_to_pm1_batched = watched
+        results: dict = {}
+
+        def ask(u):
+            results[u] = _http(base, "/previews", {"user_id": u, "prompt": f"photo of a garden, user {u}"})
+
+        try:
+            threads = [threading.Thread(target=ask, args=(u,), name=f"client-{u}") for u in users]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            both_s = time.perf_counter() - t0
+        finally:
+            del dh.decode_to_pm1_batched
+        for u in users:
+            status, body, _ = results[u]
+            if status != 200:
+                raise AssertionError(f"serving: concurrent /previews for {u}: {status} {body[:200]!r}")
+            _fetch_jpegs(base, json.loads(body)["images"], (H, W), "serving concurrent /previews")
+        if len(seen) != 2 or not all(no_fn and not req for _, _, no_fn, req in seen):
+            raise AssertionError(f"serving: decodes on the handler threads {seen}")
+        print(f"serving: 2 users' /previews at once: both 200 with {SERVING_PREVIEWS} decodable JPEGs in "
+              f"{both_s:.4f} s; decodes on the handler threads (thread, grad enabled, no grad_fn, requires_grad): "
+              f"{seen}", flush=True)
+
+        # ---- malformed requests and unknown tokens
+        bad = [("/previews", b'"x"'), ("/previews", b"[1]"), ("/previews", b"3"), ("/previews", b"{x"),
+               ("/previews", {"user_id": 5}), ("/select", {"user_id": uid}), ("/select", {"user_id": uid, "index": "0"}),
+               ("/session", {"width": "512"}), ("/session", {"height": [1]}),
+               ("/movie", {"user_id": uid, "t_per_segment": "2"}),
+               ("/reorder", {"user_id": uid, "index": 0, "direction": "up"})]
+        codes = []
+        for path, body in bad:
+            if isinstance(body, bytes):
+                codes.append(_http(base, path, raw=body)[0])
+            else:
+                codes.append(_http(base, path, body)[0])
+        forbidden = _http(base, "/files/not-a-token")[0]
+        if set(codes) != {400} or forbidden != 403:
+            raise AssertionError(f"serving: malformed requests gave {codes}, an unknown token {forbidden}")
+        print(f"serving: {len(bad)} malformed requests each 400, an unknown /files/ token 403", flush=True)
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats()
+        print(f"serving peak memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, requested "
+              f"peak {stats['requested_bytes.all.peak']} bytes", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- LPIPS at 1024², now in chunks of at most 4 pairs
+    scorer = LPIPSScorer(params=random_lpips_state_dict(seed=5), device=dh.device)
+    model, batches = scorer.model, []
+
+    def counted(a, b):
+        batches.append(a.shape[0])
+        return model(a, b)
+
+    scorer.model = counted
+    g = torch.Generator(device=dh.device).manual_seed(11)
+    xa = torch.rand((LPIPS_CHUNK_PAIRS, 1024, 1024, 3), generator=g, device=dh.device) * 2 - 1
+    xb = torch.rand((LPIPS_CHUNK_PAIRS, 1024, 1024, 3), generator=g, device=dh.device) * 2 - 1
+    scorer.distance_batch(xa, xb)  # first call: algorithm choice, allocator growth
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    batches.clear()
+    d = scorer.distance_batch(xa, xb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+    pass_batches = list(batches)  # the timed passes below append to `batches` too
+    if max(pass_batches) > 4 or sum(pass_batches) != LPIPS_CHUNK_PAIRS or not bool(torch.isfinite(d).all()):
+        raise AssertionError(f"serving: LPIPS pair batches {pass_batches}, distances {d}")
+    ms = _median_ms(torch, lambda: scorer.distance_batch(xa, xb), reps=5, warmup=1)
+    # one model call at each batch size: does the peak follow the pairs?
+    by_batch = {}
+    for nb in (1, 2, 4):
+        model(xa[:nb], xb[:nb])
+        torch.cuda.synchronize()
+        before_nb = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        model(xa[:nb], xb[:nb])
+        torch.cuda.synchronize()
+        by_batch[nb] = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before_nb
+    print(f"lpips {LPIPS_CHUNK_PAIRS} pairs at 1024x1024 in model calls of {pass_batches} pairs (largest "
+          f"{max(pass_batches)}): peak requested {peak} bytes above those held before ({peak / 1e9:.3f} GB; PR 10's "
+          f"unchunked call: 8.45 GB), {ms:.3f} ms a pass (CUDA events); one model call's peak above those held "
+          f"before, by pairs: {json.dumps(by_batch)}", flush=True)
+    del xa, xb, scorer, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _test_image(h: int, w: int, seed: int):
     """A smooth uint8 [h, w, 3] test picture (sinusoids and a seeded phase),
     made on the host as a user's image would arrive."""
@@ -1826,6 +2140,7 @@ def main() -> int:
     ref = reference_api_phase(torch, be, nlpd_walls)
     counts.update(ref["counts"])
     kres.update(ref["kres"])
+    counts.update(serving_phase(torch, be))
     be.tree_latents, be._imgs_dev, be.tree_final_imgs = [None, None], [], []
     torch.cuda.empty_cache()
     counts.update(image_phase(torch, be.dh))

@@ -4,7 +4,8 @@ With real SDXL-Turbo weights, on the card:
     python -m latentblending_tpu_torch.apps.example_single_trans --snapshot /path/to/sdxl-turbo
 Weightless run (tiny random model):
     python -m latentblending_tpu_torch.apps.example_single_trans --tiny
---device cpu runs on the CPU. --image1/--image2 read pictures with PIL.
+--device cpu runs on the CPU. --image1/--image2 read JPEGs with the port's decoder,
+other picture formats with PIL.
 """
 from __future__ import annotations
 
@@ -21,8 +22,17 @@ from latentblending_tpu_torch.runtime.holder import SDXLHolder
 
 
 def _read_image(path: str) -> np.ndarray:
-    from PIL import Image
+    """A keyframe picture as uint8 RGB: .jpg/.jpeg with the port's own
+    decoder (video/jpeg_decode.py, no PIL needed); other formats need PIL."""
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        from latentblending_tpu_torch.video.jpeg_decode import decode_rgb
 
+        with open(path, "rb") as f:
+            return decode_rgb(f.read())
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"reading {path!r} needs PIL (only .jpg/.jpeg are read without it)") from e
     return np.array(Image.open(path).convert("RGB"))
 
 
@@ -41,8 +51,8 @@ def main(argv=None):
     p.add_argument("--placement_policy", default="measured", choices=["measured", "predictive"],
                    help="measured: the reference's argmax placement; predictive: predicted gap halving, "
                         "no device read between levels")
-    p.add_argument("--image1", type=str, default=None, help="PNG/JPG to pin as the FIRST keyframe (needs PIL)")
-    p.add_argument("--image2", type=str, default=None, help="PNG/JPG to pin as the SECOND keyframe (needs PIL)")
+    p.add_argument("--image1", type=str, default=None, help="JPG (or, with PIL, PNG) to pin as the FIRST keyframe")
+    p.add_argument("--image2", type=str, default=None, help="JPG (or, with PIL, PNG) to pin as the SECOND keyframe")
     p.add_argument("--deepen", type=int, default=0, metavar="K",
                    help="after the movie, extend_transition with K extra keyframes at a deeper injection "
                         "index and write <out>.deepened.mp4")

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from latentblending_tpu_torch.models.layers import init_like_jax_
-from latentblending_tpu_torch.models.perceptual import pair_device, prep_uint8, staging_device
+from latentblending_tpu_torch.models.perceptual import chunked_pair_call, pair_device, prep_uint8, staging_device
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -132,7 +132,8 @@ class LPIPSScorer:
     Built for a device (the engine passes its holder's), the model lives
     there and both calls compute there. Built with device=None,
     distance_batch computes on its inputs' device (the model copied there
-    once) and distance on the card."""
+    once) and distance on the card. Above 512² the pairs reach the model
+    in calls of at most PAIR_CHUNK (perceptual.chunked_pair_call)."""
 
     def __init__(self, params: Optional[Mapping] = None, seed: int = 0, device=None):
         self.device = None if device is None else torch.device(device)
@@ -161,4 +162,4 @@ class LPIPSScorer:
 
     @torch.no_grad()
     def distance_batch(self, imgs_a: torch.Tensor, imgs_b: torch.Tensor) -> torch.Tensor:
-        return self._model_on(pair_device(self.device, imgs_a, imgs_b))(imgs_a, imgs_b)
+        return chunked_pair_call(self._model_on(pair_device(self.device, imgs_a, imgs_b)), imgs_a, imgs_b)

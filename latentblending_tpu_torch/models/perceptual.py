@@ -94,6 +94,22 @@ def pair_device(device: Optional[torch.device], imgs_a: torch.Tensor, imgs_b: to
     return d
 
 
+# pairs a scorer hands its model at once when H·W > 512² (the JAX package's
+# _pair_chunk_limit); at 512² and below one call takes them all
+PAIR_CHUNK = 4
+
+
+def chunked_pair_call(fn, imgs_a: torch.Tensor, imgs_b: torch.Tensor) -> torch.Tensor:
+    """fn(imgs_a, imgs_b) → [B] for [B,H,W,3] pairs: in calls of at most
+    PAIR_CHUNK pairs above 512², concatenated in pair order. Shared by
+    LPIPSScorer and NLPDScorer; the JAX package's power-of-two bucketing,
+    which only bounded its compiles, is left out."""
+    n = imgs_a.shape[0]
+    if imgs_a.shape[1] * imgs_a.shape[2] <= 512 * 512 or n <= PAIR_CHUNK:
+        return fn(imgs_a, imgs_b)
+    return torch.cat([fn(imgs_a[i:i + PAIR_CHUNK], imgs_b[i:i + PAIR_CHUNK]) for i in range(0, n, PAIR_CHUNK)])
+
+
 class NLPDScorer:
     """distance(uint8 imgs) → float; distance_batch([-1,1] [B,H,W,3] pairs) → [B].
 
@@ -115,4 +131,4 @@ class NLPDScorer:
 
     def distance_batch(self, imgs_a: torch.Tensor, imgs_b: torch.Tensor) -> torch.Tensor:
         pair_device(self.device, imgs_a, imgs_b)
-        return nlpd_distance(imgs_a, imgs_b, self.levels)
+        return chunked_pair_call(lambda a, b: nlpd_distance(a, b, self.levels), imgs_a, imgs_b)

@@ -17,11 +17,11 @@ at import time: CPU-only hosts import the wrappers and never build.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -87,7 +87,9 @@ def build(verbose: bool = False) -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    tag = f"{os.getpid()}.tmp"
+    # process and thread in the temporary names: builders in other
+    # processes or threads never write each other's files
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
     jobs = []
     for src in (p for p in _sources() if p.suffix == ".cu"):
         obj = out_dir / f"{src.stem}.{tag}.o"
@@ -112,15 +114,25 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY: ctypes.CDLL | None = None
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call) with typed entry points."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library (built on first call) with typed entry
+    points. A process-wide lock makes concurrent first calls (a threaded
+    server's first requests) build and load it once."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LIBRARY_LOCK:
+            if _LIBRARY is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIBRARY = lib
+    return _LIBRARY
 
 
 def check(rc: int, name: str) -> None:

@@ -14,6 +14,7 @@ Layout written: ftyp | mdat (raw JPEG samples) | moov. The mdat size is
 back-patched at finalize, so the target must be a seekable local file.
 All samples are sync samples (no stss box => every sample is a keyframe
 per the spec), one chunk holds all samples (single stco offset).
+`read_mjpeg_samples` reads the samples of other muxers' MJPEG files too.
 """
 from __future__ import annotations
 
@@ -153,6 +154,8 @@ def read_samples(fp: str) -> tuple[list[bytes], tuple[int, int], float] | None:
             return None
         off = struct.unpack(">I", blob[cs + 8:cs + 12])[0]
         zs, _ = tbl[b"stsz"]
+        if struct.unpack(">I", blob[zs + 4:zs + 8])[0] != 0:
+            return None  # one size for all samples: another muxer's table
         n = struct.unpack(">I", blob[zs + 8:zs + 12])[0]
         sizes = struct.unpack(f">{n}I", blob[zs + 12:zs + 12 + 4 * n])
         samples = []
@@ -162,6 +165,153 @@ def read_samples(fp: str) -> tuple[list[bytes], tuple[int, int], float] | None:
         return samples, (h, w), fps
     except Exception:
         return None
+
+
+# sample entries that carry baseline JPEG samples ('mp4v' does too when its
+# esds names object type 0x6C, ISO/IEC 10918-1, as ffmpeg's mp4 muxer writes)
+_MJPEG_ENTRIES = (b"jpeg", b"mjpa", b"MJPG")
+_OTI_JPEG = 0x6C
+
+
+def _boxes(blob: bytes, off: int, end: int):
+    """(tag, payload start, box end) of each box in blob[off:end] (64-bit
+    sizes and size 0, "to the end", included); stops at a malformed box."""
+    while off + 8 <= end:
+        size, tag = struct.unpack(">I4s", blob[off:off + 8])
+        head = 8
+        if size == 1:
+            if off + 16 > end:
+                return
+            size, head = struct.unpack(">Q", blob[off + 8:off + 16])[0], 16
+        elif size == 0:
+            size = end - off
+        if size < head or off + size > end:
+            return
+        yield tag, off + head, off + size
+        off += size
+
+
+def _child(blob: bytes, span: tuple[int, int] | None, *path: bytes) -> tuple[int, int] | None:
+    for tag in path:
+        if span is None:
+            return None
+        span = next(((s, e) for t, s, e in _boxes(blob, *span) if t == tag), None)
+    return span
+
+
+def _es_object_type(blob: bytes, s: int, e: int) -> int | None:
+    """objectTypeIndication of an esds box's DecoderConfigDescriptor."""
+    i = s + 4  # version, flags
+
+    def header(i: int) -> tuple[int, int, int]:
+        tag, size, n = blob[i], 0, i + 1
+        for _ in range(4):
+            b = blob[n]
+            n += 1
+            size = (size << 7) | (b & 0x7F)
+            if not b & 0x80:
+                break
+        return tag, size, n
+
+    try:
+        tag, _, i = header(i)
+        if tag != 0x03:
+            return None
+        flags = blob[i + 2]
+        i += 3 + (2 if flags & 0x80 else 0)
+        if flags & 0x40:
+            i += 1 + blob[i]
+        i += 2 if flags & 0x20 else 0
+        tag, _, i = header(i)
+        return blob[i] if tag == 0x04 and i < e else None
+    except IndexError:
+        return None
+
+
+def video_track(fp: str) -> dict | None:
+    """The first video track of an ISO-BMFF (MP4/MOV) file: its sample
+    entry's format ("codec", e.g. "jpeg", or "mp4v/0x6c" with the esds
+    object type), whether it carries JPEG samples ("mjpeg"), (h, w), fps
+    (samples over the track's duration) and each sample's (offset, size),
+    from stsz, stsc and stco/co64. None if the file is no such movie."""
+    try:
+        with open(fp, "rb") as f:
+            blob = f.read()
+        moov = _child(blob, (0, len(blob)), b"moov")
+        if moov is None:
+            return None
+        for tag, ts, te in _boxes(blob, *moov):
+            if tag != b"trak":
+                continue
+            mdia = _child(blob, (ts, te), b"mdia")
+            hdlr, mdhd = _child(blob, mdia, b"hdlr"), _child(blob, mdia, b"mdhd")
+            if hdlr is None or mdhd is None or blob[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
+                continue
+            stbl = _child(blob, mdia, b"minf", b"stbl")
+            tbl = {t: (a, b) for t, a, b in _boxes(blob, *stbl)} if stbl else {}
+            if not {b"stsd", b"stts", b"stsc", b"stsz"} <= tbl.keys() or not ({b"stco", b"co64"} & tbl.keys()):
+                return None
+            ss, se = tbl[b"stsd"]
+            entry = next(_boxes(blob, ss + 8, se), None)
+            if entry is None:
+                return None
+            fourcc, es, ee = entry
+            w, h = struct.unpack(">HH", blob[es + 24:es + 28])
+            codec, mjpeg = fourcc.decode("latin-1"), fourcc in _MJPEG_ENTRIES
+            if fourcc == b"mp4v":
+                esds = next(((a, b) for t, a, b in _boxes(blob, es + 78, ee) if t == b"esds"), None)
+                oti = _es_object_type(blob, *esds) if esds else None
+                codec += f"/0x{oti:02x}" if oti is not None else ""
+                mjpeg = oti == _OTI_JPEG
+            version = blob[mdhd[0]]
+            ts_off = mdhd[0] + (20 if version == 1 else 12)
+            timescale = struct.unpack(">I", blob[ts_off:ts_off + 4])[0]
+            a = tbl[b"stts"][0]
+            runs = struct.unpack(f">{2 * struct.unpack('>I', blob[a + 4:a + 8])[0]}I",
+                                 blob[a + 8:a + 8 + 8 * struct.unpack(">I", blob[a + 4:a + 8])[0]])
+            duration = sum(runs[0::2][i] * runs[1::2][i] for i in range(len(runs) // 2))
+            a = tbl[b"stsz"][0]
+            uniform, n = struct.unpack(">II", blob[a + 4:a + 12])
+            sizes = [uniform] * n if uniform else list(struct.unpack(f">{n}I", blob[a + 12:a + 12 + 4 * n]))
+            a = tbl[b"stsc"][0]
+            m = struct.unpack(">I", blob[a + 4:a + 8])[0]
+            stsc = [struct.unpack(">III", blob[a + 8 + 12 * i:a + 20 + 12 * i]) for i in range(m)]
+            if b"co64" in tbl:
+                a = tbl[b"co64"][0]
+                k = struct.unpack(">I", blob[a + 4:a + 8])[0]
+                chunks = struct.unpack(f">{k}Q", blob[a + 8:a + 8 + 8 * k])
+            else:
+                a = tbl[b"stco"][0]
+                k = struct.unpack(">I", blob[a + 4:a + 8])[0]
+                chunks = struct.unpack(f">{k}I", blob[a + 8:a + 8 + 4 * k])
+            samples, j = [], 0
+            for ci, off in enumerate(chunks, start=1):
+                per = next((spc for first, spc, _ in reversed(stsc) if first <= ci), 0)
+                for _ in range(per):
+                    if j == n:
+                        break
+                    samples.append((off, sizes[j]))
+                    off += sizes[j]
+                    j += 1
+            if j != n or any(o + z > len(blob) for o, z in samples):
+                return None
+            fps = timescale * n / duration if duration else 0.0
+            return {"codec": codec, "mjpeg": mjpeg, "shape_hw": (h, w), "fps": fps, "samples": samples, "blob": blob}
+        return None
+    except (struct.error, IndexError, ValueError):
+        return None
+
+
+def read_mjpeg_samples(fp: str) -> tuple[list[bytes], tuple[int, int], float] | None:
+    """The JPEG samples of any MJPEG MP4/MOV (this muxer's layout or
+    another's: several chunks, co64, 'jpeg'/'mjpa'/'MJPG' or 'mp4v' with
+    JPEG's object type): (samples, (h, w), fps), or None for another codec
+    or a file that is no such movie."""
+    track = video_track(fp)
+    if track is None or not track["mjpeg"]:
+        return None
+    blob = track["blob"]
+    return [blob[o:o + z] for o, z in track["samples"]], track["shape_hw"], track["fps"]
 
 
 def concat_parts(fp_out: str, parts: list[str], fps: float | None = None) -> bool:

@@ -8,14 +8,17 @@ Counterpart of latentblending_tpu/video/writer.py. Backends (LB_WRITER):
   by name, so a host binary never hides the device path;
 - `cv2` raises: OpenCV's VideoWriter is not part of the port.
 
-Reading a movie back (`read_movie_frames`) needs a JPEG decoder and is not
-ported.
+`read_movie_frames` reads MJPEG MP4s (this package's, or another muxer's)
+with the port's own baseline JPEG decoder on the host (video/jpeg_decode.py,
+libjpeg's arithmetic), where the JAX package reads through cv2; another
+codec needs the ffmpeg binary.
 """
 from __future__ import annotations
 
 import os
 import shutil
 import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -259,14 +262,83 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
             ccur = cnxt
 
 
-def concatenate_movies(fp_final: str, list_fp_movies: list[str], fps: int | None = None):
-    """Concatenate MJPEG MP4 parts written by this package into one movie,
-    losslessly (mjpeg_mp4.concat_parts). Other files would need a decoder,
-    which the port does not have: they raise."""
-    from .mjpeg_mp4 import concat_parts
+def _ffmpeg_frames(exe: str, fp_movie: str, h: int, w: int) -> list[np.ndarray]:
+    """Every frame of a movie as uint8 RGB, decoded by the ffmpeg binary."""
+    res = subprocess.run([exe, "-loglevel", "error", "-i", fp_movie, "-f", "rawvideo", "-pix_fmt", "rgb24", "-"],
+                         capture_output=True, check=False)
+    if res.returncode != 0 or len(res.stdout) % (h * w * 3):
+        raise ValueError(f"read_movie_frames: ffmpeg could not decode {fp_movie} "
+                         f"({res.returncode}): {res.stderr.decode(errors='replace')[-500:]}")
+    raw = np.frombuffer(res.stdout, np.uint8).reshape(-1, h, w, 3)
+    return [f.copy() for f in raw]
+
+
+def read_movie_frames(fp_movie: str) -> list[np.ndarray]:
+    """Decode a movie back to a list of uint8 RGB frames [H, W, 3].
+
+    MJPEG MP4/MOV files (mjpeg_mp4.read_mjpeg_samples) decode on the host
+    with video/jpeg_decode.py; any other codec goes through the ffmpeg
+    binary when one is on PATH, else raises ValueError naming the codec.
+    A file with frames never gives an empty list."""
+    from . import jpeg_decode
+    from .mjpeg_mp4 import read_mjpeg_samples, video_track
+
+    got = read_mjpeg_samples(fp_movie)
+    if got is not None:
+        return [jpeg_decode.decode_rgb(sample) for sample in got[0]]
+    track = video_track(fp_movie)
+    exe = _check_readable(fp_movie, track)
+    frames = _ffmpeg_frames(exe, fp_movie, *track["shape_hw"])
+    if len(frames) == 0 and track["samples"]:
+        raise ValueError(f"read_movie_frames: ffmpeg gave no frame of {fp_movie} ({len(track['samples'])} samples)")
+    return frames
+
+
+def _check_readable(fp_movie: str, track: dict | None) -> str | None:
+    """Raise ValueError unless read_movie_frames can read the movie whose
+    video_track is `track`: MJPEG, or any codec with an ffmpeg binary on
+    PATH (returned)."""
+    exe = shutil.which("ffmpeg")
+    if track is not None and (track["mjpeg"] or exe is not None):
+        return exe
+    what = f"{track['codec']!r} video" if track is not None else "no MP4/MOV video track this reader can parse"
+    raise ValueError(f"read_movie_frames: {fp_movie} holds {what}; without an ffmpeg binary only MJPEG is read")
+
+
+def concatenate_movies(fp_final: str, list_fp_movies: list[str], fps: int | None = None, device="cuda"):
+    """Concatenate movie parts into one (reference example_multi_trans.py:62),
+    in the JAX package's order: the ffmpeg binary's concat (stream copy) if
+    there is one; else mjpeg_mp4.concat_parts, lossless, for MJPEG parts
+    this package wrote at one shape and fps; else every part decoded
+    (read_movie_frames) and re-encoded through MovieSaver on `device`, at
+    `fps` or the first part's."""
+    from .mjpeg_mp4 import concat_parts, video_track
 
     if not list_fp_movies:
         raise ValueError("nothing to concatenate")
-    if not concat_parts(fp_final, list_fp_movies, fps=fps):
-        raise ValueError(f"concatenate_movies: not all of {list_fp_movies} are MJPEG MP4 parts of one shape and "
-                         f"fps written by this package")
+    exe = shutil.which("ffmpeg")
+    if exe is not None:
+        with tempfile.NamedTemporaryFile("w", suffix=".txt", delete=False) as f:
+            for fp in list_fp_movies:
+                f.write(f"file '{os.path.abspath(fp)}'\n")
+            list_path = f.name
+        try:
+            subprocess.run([exe, "-y", "-loglevel", "error", "-f", "concat", "-safe", "0", "-i", list_path,
+                            "-c", "copy", fp_final], check=True)
+        finally:
+            os.unlink(list_path)
+        return
+    if concat_parts(fp_final, list_fp_movies, fps=fps):
+        return
+    tracks = [video_track(fp) for fp in list_fp_movies]
+    for fp, track in zip(list_fp_movies, tracks):
+        _check_readable(fp, track)  # before the output is opened
+    fps_out = fps or tracks[0]["fps"] or 30
+    ms = None
+    for fp in list_fp_movies:
+        for frame in read_movie_frames(fp):
+            if ms is None:
+                ms = MovieSaver(fp_final, fps=int(round(fps_out)), shape_hw=frame.shape[:2], device=device)
+            ms.write_frame(frame)
+    if ms is not None:
+        ms.finalize()

@@ -64,3 +64,28 @@ def test_scripts_default_to_the_card(tmp_path):
         pytest.skip("checks the refusal on a host without a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         example_single_trans.main(["--tiny", "--out", str(tmp_path / "x.mp4")])
+
+
+def test_image_keyframes_read_jpegs_without_pil(tmp_path, monkeypatch):
+    """example_single_trans reads .jpg/.jpeg keyframes with the port's own
+    decoder (the card's machine has no PIL): the pixels PIL decodes, also
+    with PIL blocked; a grayscale JPEG comes back as RGB; other formats
+    still need PIL and say so."""
+    import io
+    import sys
+
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:96, 0:80]
+    img = np.stack([xx * 3, yy * 2, (xx + yy)], -1).astype(np.uint8)
+    jpg, gray, png = tmp_path / "kf.jpg", tmp_path / "kf_gray.JPEG", tmp_path / "kf.png"
+    Image.fromarray(img).save(jpg, quality=90)
+    Image.fromarray(img[..., 0]).save(gray, format="JPEG")
+    Image.fromarray(img).save(png)
+    want = np.asarray(Image.open(io.BytesIO(jpg.read_bytes())).convert("RGB"))
+    want_gray = np.asarray(Image.open(gray).convert("RGB"))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(example_single_trans._read_image(str(jpg)), want)
+    np.testing.assert_array_equal(example_single_trans._read_image(str(gray)), want_gray)
+    with pytest.raises(RuntimeError, match="needs PIL"):
+        example_single_trans._read_image(str(png))

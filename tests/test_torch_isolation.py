@@ -5,8 +5,12 @@ package's host modules.
   latentblending_tpu_torch (the movie path's tree cache, video layer and
   sessions, LPIPS, the checkpoint reader, the YAML writer and the example
   scripts included), and chip_smoke.py, imports in a subprocess in which
-  `import jax` and `import latentblending_tpu` fail, and so do PIL, yaml
-  and safetensors, which the card's machine lacks.
+  `import jax` and `import latentblending_tpu` fail, and so do PIL, yaml,
+  safetensors, cv2 and gradio, which the card's machine lacks (the serving
+  apps import gradio in their main() only).
+- Every name of latentblending_tpu.__all__ resolves on the port's package
+  (lazily: importing the package builds no model), read_movie_frames to
+  the port's decoder, yml_load / yml_save to the PyYAML-free ones.
 - The copied host modules equal their originals: configs, schedules,
   utils, video/i420 and engine/config (EngineConfig) byte for byte; the tokenizer (its `regex` import moved inside the
   BPE path) and profiling (without the jax.profiler hook) by behaviour.
@@ -88,15 +92,17 @@ MOVIE_MODULES = ["engine.tree_cache", "engine.session", "video.frames", "video.j
                  "video.writer"]
 REFERENCE_MODULES = ["models.lpips", "models.weights", "precision", "yaml_text", "apps.example_single_trans",
                      "apps.example_multi_trans", "apps.example_multi_trans_json"]
+# the serving path and the movie reader
+SERVING_MODULES = ["apps.gradio_ui", "apps.server", "video.jpeg_decode"]
 
 
 def test_port_never_imports_jax():
     mods = _port_modules()
     assert "latentblending_tpu_torch.engine.blending" in mods and len(mods) > 15
-    assert all(f"latentblending_tpu_torch.{m}" in mods for m in MOVIE_MODULES + REFERENCE_MODULES)
+    assert all(f"latentblending_tpu_torch.{m}" in mods for m in MOVIE_MODULES + REFERENCE_MODULES + SERVING_MODULES)
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'jaxlib', 'latentblending_tpu', 'PIL', 'yaml', 'safetensors'):\n"
+        "for name in ('jax', 'flax', 'jaxlib', 'latentblending_tpu', 'PIL', 'yaml', 'safetensors', 'cv2', 'gradio'):\n"
         "    sys.modules[name] = None\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import importlib\n"
@@ -107,6 +113,26 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     assert "imported" in res.stdout
+
+
+def test_package_exports_the_jax_names():
+    from latentblending_tpu_torch import yaml_text
+    from latentblending_tpu_torch.runtime.holder import SDXLHolder
+    from latentblending_tpu_torch.video import writer
+
+    assert latentblending_tpu_torch.__all__ == latentblending_tpu.__all__
+    for name in latentblending_tpu.__all__:
+        assert getattr(latentblending_tpu_torch, name) is not None, name
+    assert latentblending_tpu_torch.DiffusersHolder is SDXLHolder
+    assert latentblending_tpu_torch.read_movie_frames is writer.read_movie_frames
+    assert latentblending_tpu_torch.yml_load is yaml_text.yml_load
+    assert latentblending_tpu_torch.yml_save is yaml_text.yml_save
+    with pytest.raises(AttributeError):
+        latentblending_tpu_torch.not_a_name
+    # importing the package alone loads no torch
+    code = "import sys; import latentblending_tpu_torch; print('torch' in sys.modules)"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0 and res.stdout.strip() == "False", res.stderr
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:

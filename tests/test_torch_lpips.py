@@ -236,3 +236,48 @@ def test_default_scorers_keep_their_inputs_device(monkeypatch):
     for scorer in (nlpd, lp):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             scorer.distance(u8, u8)
+
+
+@pytest.mark.parametrize("metric", ["nlpd", "lpips"])
+def test_pairs_reach_the_model_in_chunks_above_512(metric, monkeypatch):
+    """Above 512² both scorers hand their model at most 4 pairs a call (the
+    JAX package's _pair_chunk_limit; no power-of-two bucketing), results
+    concatenated in pair order: 9 meta-device pairs at 1024² reach it as
+    4, 4, 1, while 11 pairs at 512² stay one call. On a small CPU case
+    above 512² (5 pairs of 64x4100) the chunked distances equal one
+    unchunked call within rtol 1e-6 (convolutions of other batch sizes
+    may sum in another order)."""
+    from latentblending_tpu_torch.models import perceptual as tp
+
+    calls = []
+    if metric == "nlpd":
+        scorer, plain = tp.NLPDScorer(device="meta"), tp.nlpd_distance
+
+        def spy(a, b, *rest):
+            calls.append(a.shape[0])
+            return plain(a, b, *rest)
+
+        monkeypatch.setattr(tp, "nlpd_distance", spy)
+    else:
+        scorer = tl.LPIPSScorer(device="meta")
+        model = scorer.model
+
+        def spy(a, b):
+            calls.append(a.shape[0])
+            return model(a, b)
+
+        scorer.model = spy
+    big = torch.zeros(9, 1024, 1024, 3, device="meta")
+    out = scorer.distance_batch(big, big)
+    assert tuple(out.shape) == (9,) and out.device.type == "meta" and calls == [4, 4, 1]
+    calls.clear()
+    small = torch.zeros(11, 512, 512, 3, device="meta")
+    assert tuple(scorer.distance_batch(small, small).shape) == (11,) and calls == [11]
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.rand((5, 64, 4100, 3), generator=g) * 2 - 1
+    b = torch.rand((5, 64, 4100, 3), generator=g) * 2 - 1
+    cpu = tp.NLPDScorer(device="cpu") if metric == "nlpd" else tl.LPIPSScorer(device="cpu")
+    whole = plain(a, b, cpu.levels) if metric == "nlpd" else cpu.model(a, b)
+    with torch.no_grad():
+        torch.testing.assert_close(cpu.distance_batch(a, b), whole, rtol=1e-6, atol=0.0)

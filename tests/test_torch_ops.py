@@ -183,6 +183,49 @@ def test_flash_dispatch_rules(monkeypatch):
 
 # ------------------------------------------------------------------ on the GPU
 
+def test_kernel_library_builds_once_under_concurrent_first_calls(monkeypatch):
+    """_build.library() under 8 concurrent first calls (a threaded server's
+    first requests) builds and loads the library once; build and the
+    loader are stubbed, so no nvcc runs."""
+    import threading
+    import time
+
+    from latentblending_tpu_torch.ops import _build
+
+    builds, loads = [], []
+    start = threading.Barrier(8)
+
+    def fake_build(verbose=False):
+        builds.append(threading.get_ident())
+        time.sleep(0.05)  # a build takes a while: the others arrive meanwhile
+        return "liblbkernels.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return type("Entry", (), {})()
+
+    def fake_cdll(path):
+        loads.append(path)
+        return FakeLib()
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    got = []
+
+    def first_call():
+        start.wait()
+        got.append(_build.library())
+
+    threads = [threading.Thread(target=first_call) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and loads == ["liblbkernels.so"]
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu():
     """Each CUDA kernel against its plain version on the card, at the main

@@ -185,3 +185,37 @@ def test_write_imgs_transition(engines, tmp_path, prompts, plain):
     assert text == dump(state)
     if plain:
         assert text == yaml.dump(state, sort_keys=False, default_flow_style=False)
+
+
+@pytest.mark.parametrize("prompts", [
+    ("photo of a forest at dawn, mist between the trees " * 3, "photo of a city at night"),
+    ("city: skyline #night", "'quoted' \"double\" " * 9),
+    ("- leading dash", ""),
+    ("héllo wörld, 日本語 😀\nsecond line\ttab", "yes"),
+])
+def test_yml_save_load_round_trip(engines, tmp_path, prompts):
+    """The package's yml_save / yml_load (yaml_text, no PyYAML): the
+    engine's state dict round-trips and reads back as yaml.safe_load reads
+    the same file; PyYAML's own block dumps of nested maps and lists read
+    back too, and what the reader does not take raises ValueError."""
+    import latentblending_tpu_torch as lbt
+
+    _, tbe = engines
+    tbe.prompt1, tbe.prompt2 = prompts
+    tbe.negative_prompt = prompts[1]
+    state = tbe.get_state_dict()
+    fp = str(tmp_path / "state.yaml")
+    lbt.yml_save(fp, state)
+    with open(fp, encoding="utf-8") as f:
+        want = yaml.safe_load(f)
+    assert lbt.yml_load(fp) == want == state
+    nested = {"settings": state, "plan": [[3, 2], {"idx": 1, "fract": 0.25, "name": prompts[0], "none": None}],
+              "flags": [True, False], "empty": []}
+    text = yaml.dump(nested, sort_keys=False, default_flow_style=False, width=60)
+    from latentblending_tpu_torch.yaml_text import loads
+
+    assert loads(text.replace("empty: []\n", "")) == yaml.safe_load(text.replace("empty: []\n", ""))
+    for bad in ("a: &x 1\n", "a: *x\n", "a: !!str 1\n", "a: [1, 2]\n", "a: {b: 1}\n", "a: |\n  x\n",
+                "? a\n: b\n", "a: 2001-12-14\n", "- 1\n"):
+        with pytest.raises(ValueError):
+            loads(bad)
