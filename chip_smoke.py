@@ -59,14 +59,22 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
 6. the movie (movie_phase) on the same engine, fused (LB_FUSED=1): one warm
    run_transition, then run_movie_transition of the README example's
    length (12 s at 30 fps) cold and warm, each with K1-K3 launched as the
-   fused transition launches them, J1 once per keyframe and J3 once per
-   sample (plus the quality probes of the first keyframe), J2 once per
-   in-between frame, backend "mjpeg+coef-lerp"; the file parsed with the
-   port's read_samples (360 samples of 512x512 at 30 fps, each from SOI to
-   EOI); J1 on the first two keyframes' I420 planes, J2 at the first two
-   in-between fractions and J3 on those four frames equal to their plain
-   versions, and the file's samples equal to those bytes; each kernel's
-   times and ms a frame for keyframe and in-between encodes;
+   fused transition launches them, J1 once per keyframe, J3 once per
+   keyframe (the first keyframe's call, then one call per gap coding its
+   in-between frames and the next keyframe) and J2 once per gap, plus the
+   quality probes of the first keyframe (a J1 and a one-frame J3 call
+   each), J3 coding every sample once (J3_frames), backend
+   "mjpeg+coef-lerp"; the warm movie wall beside the warm transition wall;
+   the file parsed with the port's read_samples (360 samples of 512x512 at
+   30 fps, each from SOI to EOI); J1 on the first two keyframes' I420
+   planes against its plain version, batched J2 on all of gap 0's
+   fractions, batched J3 on gap 0 (its in-between frames and keyframe 1)
+   against the plain coder on every frame and against the file's samples,
+   J3 on keyframe 0 against sample 0; the kernels' times (J2 and J3 at
+   F = 1 and at the gap's F; J3's device time by CUDA-graph replay of its
+   device half) and ms a frame for keyframes and for a gap; J3 on noise
+   batches (512² F=33, 1024² F=8) against per-frame calls and the plain
+   coder on two frames each, with the call's peak device bytes;
    write_movie_transition (RGB keyframes) for 2 s with the coefficient lerp
    and with LB_COEF_LERP=0 (pixel lerp on the card, J1 and J3 per frame),
    one frame of each: J1 (RGB) against its plain version, the sample
@@ -80,7 +88,7 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    launches none of K1-K3), its distances on the card against the CPU
    (LPIPS_REL_BOUND) and the pass's times at 512² and 1024²; the gap
    between the metrics on one engine switched by apply_config;
-   write_imgs_transition (12 JPEGs: J1's RGB route once, J3 per file, the
+   write_imgs_transition (12 JPEGs: J1's RGB route and J3 once each, the
    first file equal to encode_rgb of its keyframe; J1 RGB on all 12
    keyframes against its plain version and timed); the reference's single-branch loop for 3
    stems with exact launches, cold and warm, beside one per-level round
@@ -92,7 +100,7 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    apps.server.serve(MultiUserRouter({"sdxl-turbo": engine}, 4 previews))
    on 127.0.0.1; /health, /session 512x512, /previews cold and warm with
    exact launches (K1 slerp_rows 4, K2 40, K3 per decode chunk, J1's RGB
-   route once, J3 four times), each file fetched and decoded by the port's
+   route and J3 once each), each file fetched and decoded by the port's
    decoder; /select and /keyframe twice, /movie (t_per_segment 2) counted
    and warm, its MP4 read back by read_movie_frames (60 frames, its ends
    against the keyframes in PSNR, host ms a frame); two users' /previews
@@ -684,7 +692,8 @@ def small_input_check(torch) -> None:
         raise AssertionError(f"tiny-turbo fused vs per-level on the GPU: {lsb} LSB > 1")
 
 
-_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J2", "J3")
+# J3 counts calls, J3_frames the frames those calls coded
+_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J2", "J3", "J3_frames")
 
 
 def _zero_counts() -> None:
@@ -701,6 +710,7 @@ def _zero_counts() -> None:
     jpeg.launches_fdct_rgb = 0
     jpeg.launches_lerp = 0
     jpeg.launches_huffman = 0
+    jpeg.launches_huffman_frames = 0
 
 
 def _read_counts() -> dict:
@@ -710,8 +720,7 @@ def _read_counts() -> dict:
     return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
             "K2_f32": attention.launches_self_f32, "K3": attention.launches_vae,
             "K3_bf16": attention.launches_vae_bf16, "J1": jpeg.launches_fdct, "J1_rgb": jpeg.launches_fdct_rgb,
-            "J2": jpeg.launches_lerp,
-            "J3": jpeg.launches_huffman}
+            "J2": jpeg.launches_lerp, "J3": jpeg.launches_huffman, "J3_frames": jpeg.launches_huffman_frames}
 
 
 def _ceil(a: int, b: int) -> int:
@@ -885,15 +894,19 @@ def _expect_counts(counts: dict, want: dict, label: str) -> None:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
 
-def _check_jpeg_counts(counts: dict, keyframes: int, frames: int, lerped: int, label: str) -> int:
-    """J1 once per keyframe (or frame, on the pixel path) and J3 once per
-    sample, plus the same number of quality probes in each (the first
-    keyframe's calibrate_quality), J2 once per lerped frame; returns the
-    probes."""
+def _check_jpeg_counts(counts: dict, keyframes: int, frames: int, lerp_calls: int, label: str) -> int:
+    """J1 once per keyframe (or frame, on the pixel path) plus the quality
+    probes (the first keyframe's calibrate_quality: one J1 and one J3 call
+    of one frame each); J3 one call per keyframe (or frame): the first
+    keyframe's, then one per gap for its in-between frames and the next
+    keyframe, coding every sample once; J2 `lerp_calls` calls (one per gap;
+    CoefFrames.lerp_many splits a gap above MAX_CALL_COEF_BYTES, 170 frames
+    at 512², which no movie here reaches). Returns the probes."""
     probes = counts["J1"] - keyframes
-    if not (0 <= probes <= 7 and counts["J3"] == frames + probes and counts["J2"] == lerped):
-        raise AssertionError(f"{label}: JPEG launches {counts}, expected J1 {keyframes} + p, J2 {lerped}, "
-                             f"J3 {frames} + p with 0 <= p <= 7")
+    want = {"J2": lerp_calls, "J3": keyframes + probes, "J3_frames": frames + probes}
+    if not 0 <= probes <= 7 or any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: JPEG launches {counts}, expected J1 {keyframes} + p and "
+                             f"{want} with p = {probes} in 0..7")
     return probes
 
 
@@ -904,15 +917,48 @@ def _jpeg_exact(torch, label: str, got, want) -> int:
     return 0
 
 
+def _peak_bytes(torch, fn) -> tuple:
+    """fn's result and the device bytes its call held at its peak above
+    what was allocated before it: (result, max_memory_allocated bytes,
+    requested bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, req0 = torch.cuda.memory_allocated(), torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base, torch.cuda.memory_stats()["requested_bytes.all.peak"] - req0
+
+
+def _j3_times(torch, coef, plain_s: float) -> dict:
+    """J3 on coef [F, n, 64]: device time of its device half by CUDA-graph
+    replay (plan known, no host read), one call with its two host syncs and
+    the copy to pinned memory (CUDA events), ms a frame, the plain coder's
+    time (host clock, measured by the caller), the bound (coefficients read
+    and scans written once over 3.35 TB/s) and its share."""
+    from latentblending_tpu_torch.video import jpeg
+
+    scans = jpeg.huffman_scan_batch(coef)
+    plan = jpeg.huffman_scan_device(coef)[2]  # read once: the graph's calls take it and read nothing
+    case = {"F": coef.shape[0], "scan_bytes": sum(map(len, scans)),
+            **_bound(coef.numel() * 2 + sum(map(len, scans)), 0, "bf16")}
+    case["ms"] = _device_ms(torch, lambda: jpeg._huffman_scan_replay(coef, plan))
+    case["call_ms"] = _median_ms(torch, lambda: jpeg.huffman_scan_batch(coef))
+    case.update(ms_a_frame=case["call_ms"] / case["F"], plain_ms=plain_s * 1e3, library_ms=None,
+                bound_us=case["bound_ms"] * 1e3, share_of_bound=case["bound_ms"] / case["ms"])
+    return case
+
+
 def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> dict:
-    """J1-J3 on the movie's first two keyframes (the I420 planes the engine
-    shipped) and the first two in-between fractions, each exactly equal to
-    its plain version, and those four frames' bytes equal to the file's
-    samples; then each kernel's times (device time by CUDA-graph replay for
-    J1 and J2; J3 and the plain versions by CUDA events around one call,
-    J3 including its read of the length and its copy to the host; the plain
-    J3, a Python bit writer, by the host clock on these four frames) and
-    ms a frame for keyframe encodes (J1+J3) and in-between frames (J2+J3)."""
+    """J1-J3 on the movie's first gap: J1 on its two keyframes (the I420
+    planes the engine shipped) against its plain version; batched J2 on all
+    the gap's fractions against its plain version; batched J3 on the gap's
+    in-between frames and keyframe 1, as the writer codes them, against the
+    plain coder on every frame and against the file's samples; J3 on
+    keyframe 0 alone against sample 0. Then the kernels' times (device time
+    by CUDA-graph replay, J2 and J3 at F = 1 and at the gap's F; one call
+    by CUDA events, J3's with its host reads; the plain coder by the host
+    clock) and ms a frame for keyframe encodes (J1+J3) and for the gap
+    (CoefFrames.lerp_many, J2+J3, the next keyframe's sample included)."""
     import numpy as np
 
     from latentblending_tpu_torch.ops.schedules import frame_insert_counts
@@ -923,58 +969,101 @@ def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> 
     coef = jpeg.fdct_quant(planes, quality)
     j1_err = _jpeg_exact(torch, "J1 (I420)", coef, jpeg.fdct_quant_reference(planes, quality))
     gap = frame_insert_counts(len(be._imgs_dev), target)[0]
-    fracts = [float(f) for f in np.linspace(0, 1, gap + 2)[1:3]]
-    lerps = [jpeg.coef_lerp(coef[0], coef[1], f) for f in fracts]
-    j2_err = max(_jpeg_exact(torch, f"J2 t={f}", c, jpeg.coef_lerp_reference(coef[0], coef[1], f))
-                 for f, c in zip(fracts, lerps))
+    fracts = [float(f) for f in np.linspace(0, 1, gap + 2)[1:]]  # the writer's: t = 1 is keyframe 1
+    batch = jpeg.coef_lerp_batch(coef[0], coef[1], fracts)  # samples 1 .. gap + 1, as the writer codes them
+    j2_err = _jpeg_exact(torch, f"J2 at the gap's {gap + 1} fractions", batch,
+                         jpeg.coef_lerp_batch_reference(coef[0], coef[1], fracts))
+    _jpeg_exact(torch, "J2 at t = 1 against keyframe 1", batch[-1], coef[1])
+    scans = jpeg.huffman_scan_batch(batch)
+    t0 = time.perf_counter()
+    want = [jpeg.huffman_scan_reference(c) for c in batch]
+    plain_batch_s = time.perf_counter() - t0
     header = jpeg.jfif_header(H, W, quality)
-    plain_s, scans = [], {}
-    for idx, c in ((0, coef[0]), (1, lerps[0]), (2, lerps[1]), (gap + 1, coef[1])):
-        scan = jpeg.huffman_scan(c)
-        t0 = time.perf_counter()
-        want = jpeg.huffman_scan_reference(c)
-        plain_s.append(time.perf_counter() - t0)
-        if scan != want:
-            raise AssertionError(f"J3: sample {idx}'s scan differs from the plain coder's")
-        if samples[idx] != header + scan + jpeg.EOI:
-            raise AssertionError(f"movie sample {idx} is not the kernels' bytes for its frame")
-        scans[idx] = scan
-    print(f"movie kernels vs plain: J1 on 2 keyframes [2,{H * 3 // 2},{W}] q{quality}, J2 at t={fracts}, J3 on "
-          f"samples 0, 1, 2, {gap + 1}: all equal, and equal to the file's samples", flush=True)
+    for f, (scan, w) in enumerate(zip(scans, want)):
+        if scan != w:
+            raise AssertionError(f"J3: gap 0's frame {f} (sample {f + 1}) differs from the plain coder's")
+        if samples[f + 1] != header + scan + jpeg.EOI:
+            raise AssertionError(f"movie sample {f + 1} is not the batched kernels' bytes for its frame")
+    one = coef[:1].contiguous()
+    t0 = time.perf_counter()
+    want0 = jpeg.huffman_scan_reference(one[0])
+    plain_one_s = time.perf_counter() - t0
+    if jpeg.huffman_scan_batch(one) != [want0] or samples[0] != header + want0 + jpeg.EOI:
+        raise AssertionError("J3: keyframe 0 differs from the plain coder's or from sample 0")
+    print(f"movie kernels vs plain: J1 on 2 keyframes [2,{H * 3 // 2},{W}] q{quality}; J2 batched on gap 0's "
+          f"{gap + 1} fractions (t = 1 equal to keyframe 1); J3 batched on gap 0 ([{gap + 1},{coef.shape[1]},64]: {gap} in-between frames and "
+          f"keyframe 1) against the plain coder on all {gap + 1} frames and the file's samples 1..{gap + 1}; J3 on "
+          f"keyframe 0 against sample 0: all equal", flush=True)
 
-    def times(case: dict, kernel, plain_ms: float, graph: bool = True) -> dict:
-        # the plain versions copy small tables to the card, which a CUDA graph
-        # cannot capture: CUDA events around one call time them
-        case["call_ms"] = _median_ms(torch, kernel)
-        case["ms"] = _device_ms(torch, kernel) if graph else case["call_ms"]
-        case.update(plain_ms=plain_ms, library_ms=None, bound_us=case["bound_ms"] * 1e3)
-        case["share_of_bound"] = case["bound_ms"] / case["ms"]
-        return case
-
-    one = planes[:1].contiguous()
     coef_bytes = coef[0].numel() * 2
-    j1 = times({"shape": f"[1,{H * 3 // 2},{W}] uint8 I420 -> [{coef.shape[1]},64] int16", "max_abs_err": j1_err,
-                **_bound(one.numel() + coef_bytes, 0, "bf16")},
-               lambda: jpeg.fdct_quant(one, quality),
-               _median_ms(torch, lambda: jpeg.fdct_quant_reference(one, quality)))
-    j2 = times({"shape": f"2 x [{coef.shape[1]},64] int16", "max_abs_err": j2_err, **_bound(3 * coef_bytes, 0, "bf16")},
-               lambda: jpeg.coef_lerp(coef[0], coef[1], fracts[0]),
-               _median_ms(torch, lambda: jpeg.coef_lerp_reference(coef[0], coef[1], fracts[0])))
-    # J3 reads the scan's length on the host: its time is one call's, reads included
-    j3 = times({"shape": f"[{coef.shape[1]},64] int16 -> {len(scans[0])} bytes (keyframe 0)", "max_abs_err": 0,
-                **_bound(coef_bytes + len(scans[0]), 0, "bf16")},
-               lambda: jpeg.huffman_scan(coef[0]), statistics.median(plain_s) * 1e3, graph=False)
-    pair = jpeg.CoefFrames(coef[0], coef[1], H, W, quality)
-    per_frame = {"keyframe (J1+J3)": _median_ms(torch, lambda: jpeg.encode_coefs(jpeg.fdct_quant(one, quality)[0],
-                                                                                  H, W, quality)),
-                 "in-between (J2+J3)": _median_ms(torch, lambda: pair.lerp(fracts[0]))}
-    for name, case in (("J1", j1), ("J2", j2), ("J3", j3)):
-        print(f"{name} {case['shape']}: device {case['ms']:.5f} ms, one call {case['call_ms']:.5f} ms, plain "
-              f"{case['plain_ms']:.5f} ms, bound {case['bound_us']:.3f} us ({case['bound_by']}), share "
-              f"{case['share_of_bound']:.1%}", flush=True)
-    print(f"movie ms a frame at {H}x{W} (CUDA events, one call each, host reads included): {json.dumps(per_frame)}",
+    j1 = {"shape": f"[1,{H * 3 // 2},{W}] uint8 I420 -> [{coef.shape[1]},64] int16", "max_abs_err": j1_err,
+          **_bound(planes[0].numel() + coef_bytes, 0, "bf16")}
+    j1["call_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant(planes[:1], quality))
+    j1["ms"] = _device_ms(torch, lambda: jpeg.fdct_quant(planes[:1], quality))
+    j1["plain_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant_reference(planes[:1], quality))
+    j1.update(library_ms=None, bound_us=j1["bound_ms"] * 1e3, share_of_bound=j1["bound_ms"] / j1["ms"])
+    j2 = {}
+    for F in (gap + 1, 1):
+        ts = fracts[:F]
+        c = j2[F] = {"F": F, "shape": f"2 x [{coef.shape[1]},64] int16 -> [{F},{coef.shape[1]},64] (batched)",
+                     "max_abs_err": j2_err, **_bound((2 + F) * coef_bytes, 0, "bf16")}
+        c["ms"] = _device_ms(torch, lambda: jpeg.coef_lerp_batch(coef[0], coef[1], ts))
+        c["call_ms"] = _median_ms(torch, lambda: jpeg.coef_lerp_batch(coef[0], coef[1], ts))
+        c["plain_ms"] = _median_ms(torch, lambda: jpeg.coef_lerp_batch_reference(coef[0], coef[1], ts), reps=5)
+        c.update(ms_a_frame=c["call_ms"] / F, library_ms=None, bound_us=c["bound_ms"] * 1e3,
+                 share_of_bound=c["bound_ms"] / c["ms"])
+    j3 = {gap + 1: _j3_times(torch, batch, plain_batch_s), 1: _j3_times(torch, one, plain_one_s)}
+    j3[gap + 1]["shape"] = f"[{gap + 1},{coef.shape[1]},64] int16 -> {j3[gap + 1]['scan_bytes']} bytes (gap 0, batched)"
+    j3[1]["shape"] = f"[1,{coef.shape[1]},64] int16 -> {j3[1]['scan_bytes']} bytes (keyframe 0)"
+    for c in j3.values():
+        c["max_abs_err"] = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            jpeg.huffman_scan_batch(batch)
+        torch.cuda.synchronize()
+    kernels = {name: (round(ms / calls, 5), calls) for name, (ms, calls) in _device_kernels(torch, prof)[1].items()}
+    print(f"J3 F={gap + 1} by kernel (torch.profiler over 3 calls: ms a launch, launches seen): {json.dumps(kernels)}",
           flush=True)
-    return {"J1": [j1], "J2": [j2], "J3": [j3]}
+    pair = jpeg.CoefFrames(coef[0], coef[1], H, W, quality)
+    per_frame = {"keyframe (J1+J3)": _median_ms(torch, lambda: jpeg.encode_coefs(jpeg.fdct_quant(planes[:1], quality)[0],
+                                                                                  H, W, quality)),
+                 f"gap of {gap} + keyframe (J2+J3, lerp_many), a frame":
+                     _median_ms(torch, lambda: pair.lerp_many(fracts), reps=10) / (gap + 1)}
+    for name, case in [("J1", j1)] + [(f"J2 F={F}", c) for F, c in j2.items()] + \
+            [(f"J3 F={F}", c) for F, c in j3.items()]:
+        print(f"{name} {case['shape']}: device {case['ms']:.5f} ms (CUDA-graph replay), one call "
+              f"{case['call_ms']:.5f} ms" + (f" ({case['ms_a_frame']:.5f} a frame)" if "ms_a_frame" in case else "")
+              + f", plain {case['plain_ms']:.5f} ms, bound {case['bound_us']:.3f} us ({case['bound_by']}), share "
+              f"{case['share_of_bound']:.2%}", flush=True)
+    print(f"movie ms a frame at {H}x{W} (CUDA events, host reads included): {json.dumps(per_frame)}", flush=True)
+    return {"J1": [j1], "J2": [j2[gap + 1], j2[1]], "J3": [j3[gap + 1], j3[1]]}
+
+
+def _j3_stress(torch, cases=(((512, 512), 33), ((1024, 1024), 8))) -> None:
+    """J3 on batches of noise frames (I420 noise at q 90: long scans, many
+    0xFF bytes to stuff): 512² at F = 33 and 1024² at F = 8, each against
+    per-frame calls of the kernels and the plain coder on its first and
+    last frames, with the call's peak device bytes above what was held
+    before it."""
+    import numpy as np
+
+    from latentblending_tpu_torch.video import jpeg
+
+    rng = np.random.default_rng(13)
+    for (h, w), F in cases:
+        frames = torch.from_numpy(rng.integers(0, 256, (F, h * 3 // 2, w), dtype=np.uint8)).cuda()
+        coef = jpeg.fdct_quant(frames, 90)
+        del frames
+        scans, peak, req = _peak_bytes(torch, lambda: jpeg.huffman_scan_batch(coef))
+        if scans != [jpeg.huffman_scan(c) for c in coef]:
+            raise AssertionError(f"J3 stress {h}x{w} F={F}: the batch differs from per-frame calls")
+        for f in (0, F - 1):
+            if scans[f] != jpeg.huffman_scan_reference(coef[f]):
+                raise AssertionError(f"J3 stress {h}x{w} F={F}: frame {f} differs from the plain coder's")
+        nbytes = sum(map(len, scans))
+        print(f"J3 stress {h}x{w} noise F={F}: {nbytes} scan bytes ({sum(x.count(bytes([255, 0])) for x in scans)} "
+              f"stuffed 0xFF), equal to per-frame calls and to the plain coder on frames 0 and {F - 1}; peak device "
+              f"bytes of the call {peak} (requested {req}) beside {coef.numel() * 2} of coefficients", flush=True)
 
 
 def movie_phase(torch, be) -> dict:
@@ -1007,6 +1096,7 @@ def movie_phase(torch, be) -> dict:
         be.run_transition(fixed_seeds=SEEDS)
         torch.cuda.synchronize()
         trans_warm = time.perf_counter() - t0
+        trans_phases = {k: v["total_s"] for k, v in be.last_report.phases.items()}
 
         fp = os.path.join(tmp, "movie.mp4")
         walls = []
@@ -1018,23 +1108,26 @@ def movie_phase(torch, be) -> dict:
             walls.append(time.perf_counter() - t0)
             c = _read_counts()
             # K1-K3 as the fused transition launches them; J1-J3 as the movie needs
-            _check_transition(be, imgs, {**c, "J1": 0, "J1_rgb": 0, "J2": 0, "J3": 0}, "fused", k2, f"movie ({run})")
+            _check_transition(be, imgs, {**c, "J1": 0, "J1_rgb": 0, "J2": 0, "J3": 0, "J3_frames": 0}, "fused", k2,
+                              f"movie ({run})")
             n_kf = len(be.tree_final_imgs)
-            probes = _check_jpeg_counts(c, n_kf, target, target - n_kf, f"movie ({run})")
+            probes = _check_jpeg_counts(c, n_kf, target, n_kf - 1, f"movie ({run})")
             if run == "cold":
                 counts["movie (run_movie_transition)"] = c
         if be.last_writer_backend != "mjpeg+coef-lerp":
             raise AssertionError(f"movie: backend {be.last_writer_backend}, expected mjpeg+coef-lerp")
         q = be.last_jpeg_quality
         samples = _movie_samples(fp, target, (H, W), MOVIE_FPS, "movie")
-        phases = be.last_report.phases
+        phases = {k: v["total_s"] for k, v in be.last_report.phases.items()}
         print(f"movie: run_movie_transition {MOVIE_SECONDS} s at {MOVIE_FPS} fps, {len(samples)} samples of "
               f"{H}x{W} ({os.path.getsize(fp)} bytes), backend {be.last_writer_backend}, settled quality {q} "
               f"({probes} probe encodes), cold wall {walls[0]:.4f} s, warm wall {walls[1]:.4f} s beside "
-              f"run_transition's warm wall {trans_warm:.4f} s; warm phases: movie_write "
-              f"{json.dumps(phases.get('movie_write'))}, keyframe_fetch {json.dumps(phases.get('keyframe_fetch'))}; "
+              f"run_transition's warm wall {trans_warm:.4f} s (movie - transition, warm: "
+              f"{walls[1] - trans_warm:.4f} s); warm phases (s): movie {json.dumps(phases)}, transition "
+              f"{json.dumps(trans_phases)}; "
               f"launches (cold) {json.dumps(counts['movie (run_movie_transition)'])}", flush=True)
         kres = _jpeg_kernel_checks(torch, be, samples, q, target)
+        _j3_stress(torch)
 
         # the finished tree's movie from its RGB keyframes, then the pixel path
         rgb_target = 2 * MOVIE_FPS
@@ -1052,7 +1145,7 @@ def movie_phase(torch, be) -> dict:
             wall = time.perf_counter() - t0
             c = counts[label] = _read_counts()
             pixel = coef_lerp == "0"
-            _check_jpeg_counts(c, rgb_target if pixel else n_kf, rgb_target, 0 if pixel else rgb_target - n_kf, label)
+            _check_jpeg_counts(c, rgb_target if pixel else n_kf, rgb_target, 0 if pixel else n_kf - 1, label)
             if c["J1_rgb"] != c["J1"]:
                 raise AssertionError(f"{label}: every J1 launch should take the RGB route, got {c}")
             s2 = _movie_samples(fp2, rgb_target, (H, W), MOVIE_FPS, label)
@@ -1117,7 +1210,7 @@ def movie_phase(torch, be) -> dict:
         c = counts["run_multi_transition"] = _read_counts()
         s4 = _movie_samples(fp4, 2 * 2 * MOVIE_FPS, (H, W), MOVIE_FPS, "run_multi_transition")
         n_kf = 2 * len(be.tree_final_imgs)  # each part writes its two edges
-        _check_jpeg_counts(c, n_kf, len(s4), len(s4) - n_kf, "run_multi_transition")
+        _check_jpeg_counts(c, n_kf, len(s4), n_kf - 2, "run_multi_transition")
         if be.last_writer_backend != "mjpeg+coef-lerp":
             raise AssertionError(f"run_multi_transition: backend {be.last_writer_backend}")
         print(f"run_multi_transition: 3 keyframes, 2 parts of {2 * MOVIE_FPS} frames -> {len(s4)} samples in "
@@ -1241,7 +1334,7 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
        the similarity phases and the allocator's cudaMalloc, cudaFree and
        retry counts, then one profiled fused run of each;
     2. write_imgs_transition of those 12 keyframes into a temporary
-       directory: J1 (RGB route) once, J3 once per keyframe, each file from
+       directory: J1 (RGB route) once, J3 once for all keyframes, each file from
        SOI to EOI, the first equal to encode_rgb of its keyframe, lowres.yaml
        the yaml_text of get_state_dict(); J1's RGB route on the 12
        keyframes at once (the batch write_imgs_transition gives it)
@@ -1369,7 +1462,7 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
         c = counts["write_imgs_transition"] = _read_counts()
         n_kf = len(be.tree_final_imgs)
         want_c = dict.fromkeys(_COUNT_KEYS, 0)
-        want_c.update({"J1": 1, "J1_rgb": 1, "J3": n_kf})
+        want_c.update({"J1": 1, "J1_rgb": 1, "J3": 1, "J3_frames": n_kf})
         _expect_counts(c, want_c, "write_imgs_transition")
         names = sorted(os.listdir(tmp))
         if names != sorted([f"lowres_img_{i:04d}.jpg" for i in range(n_kf)] + ["lowres.yaml"]):
@@ -1482,7 +1575,7 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
             k_want = _expected_launches(app, "fused", k2)
             kk = [k for k in _COUNT_KEYS if k[0] == "K"]
             _expect_counts({k: c[k] for k in kk}, {k: k_want[k] for k in kk}, "example_single_trans (K1-K3)")
-            _check_jpeg_counts(c, n_kf, 2 * MOVIE_FPS, 2 * MOVIE_FPS - n_kf, "example_single_trans")
+            _check_jpeg_counts(c, n_kf, 2 * MOVIE_FPS, n_kf - 1, "example_single_trans")
             samples = _movie_samples(out, 2 * MOVIE_FPS, (H, W), MOVIE_FPS, "example_single_trans")
             print(f"example_single_trans --snapshot (from_pretrained, run_transition, write_movie_transition 2 s): "
                   f"{len(samples)} samples in {app_s:.3f} s, {n_kf} keyframes, launches {json.dumps(c)}", flush=True)
@@ -1566,13 +1659,15 @@ def serving_phase(torch, be) -> dict:
     2. /previews cold and warm, counted (sequential requests): K1 slerp_rows
        once per step, K2 steps x 10, K3 once per decode chunk (the
        previews' batched denoise and decode), J1 once (its RGB route, the 4
-       previews in one call), J3 four times; each of the 4 files fetched
+       previews in one call), J3 once (the 4 files in one call); each of
+       the 4 files fetched
        over /files/<token> and decoded by the port's decoder to
        [512,512,3] uint8;
     3. /select and /keyframe twice (new previews between), then /movie with
        t_per_segment=2, counted and then again warm: K1-K3 as the fused
-       transition launches them (LB_FUSED=1), J1 per keyframe and J3 per
-       sample plus the quality probes, J2 per in-between frame; the MP4
+       transition launches them (LB_FUSED=1), J1 and J3 per keyframe plus
+       the quality probes (one J3 call for the gap and the last keyframe),
+       J2 once per gap; the MP4
        fetched, round(2 x 30) frames read back by read_movie_frames, the
        first and last at SERVING_PSNR_DB or more against the engine's first
        and last keyframes, and SERVING_PSNR_MARGIN_DB above the other end's;
@@ -1620,7 +1715,7 @@ def serving_phase(torch, be) -> dict:
         # ---- previews, counted, cold and warm
         want_prev = dict.fromkeys(_COUNT_KEYS, 0)
         want_prev.update({"K1_rows": N, "K2": N * k2, "K3": _ceil(SERVING_PREVIEWS, dh.decode_chunk),
-                          "J1": 1, "J1_rgb": 1, "J3": SERVING_PREVIEWS})
+                          "J1": 1, "J1_rgb": 1, "J3": 1, "J3_frames": SERVING_PREVIEWS})
         prev_walls, decode_ms = [], []
         for run in ("cold", "warm"):
             _zero_counts()
@@ -1660,7 +1755,7 @@ def serving_phase(torch, be) -> dict:
                 kk = [k for k in _COUNT_KEYS if k[0] == "K"]
                 _expect_counts({k: c[k] for k in kk}, {k: k_want[k] for k in kk}, f"serving /movie ({run}, K1-K3)")
                 n_kf = len(be.tree_final_imgs)
-                probes = _check_jpeg_counts(c, n_kf, target, target - n_kf, f"serving /movie ({run})")
+                probes = _check_jpeg_counts(c, n_kf, target, n_kf - 1, f"serving /movie ({run})")
         status, mp4, ctype = _http(base, r["movie_url"])
         if status != 200 or ctype != "video/mp4" or r["json_url"] is None:
             raise AssertionError(f"serving: movie {status} {ctype}, project {r['json_url']}")
@@ -2072,9 +2167,10 @@ def _kernels_line(kres: dict, counts: dict) -> list:
         # write_imgs_transition's keyframes, which the JAX package saves with PIL
         "J1_rgb": ("jpeg_fdct_quant, RGB route (color conversion, 2x2 downsampling, DCT, quantize)",
                    "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/engine/blending.py:1761"),
-        "J2": ("jpeg_coef_lerp (an in-between frame's coefficients)", "latentblending_tpu_torch/csrc/jpeg.cu",
-               "latentblending_tpu/video/_jpeg_lerp.py:107"),
-        "J3": ("jpeg_huffman (baseline Huffman coding and byte stuffing: 4 launches a count)",
+        "J2": ("jpeg_coef_lerp, batched (a gap's in-between frames' coefficients, F fractions a call)",
+               "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:107"),
+        "J3": ("jpeg_huffman, batched (Huffman coding, padding and byte stuffing of F frames a call: a warp "
+               "per block, scans in the kernels, 8 launches, the card's copy to pinned memory)",
                "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:66"),
     }
     kernels = []

@@ -7,8 +7,8 @@ so two users never mutate one BlendingEngine at once (the reference's
 gradio_ui.py:40-53 shares one engine with no lock).
 
 Preview JPEGs are encoded on the engine's device by the port's JPEG
-kernels (video/jpeg.encode_rgb: J1's RGB route once for the N previews,
-J3 per file) at quality 80, outside the engine lock; the JAX app saves
+kernels (video/jpeg.encode_rgb: J1's RGB route and J3, once each for the
+N previews) at quality 80, outside the engine lock; the JAX app saves
 them with PIL at the same quality, so both decode to the same pixels.
 
     python -m latentblending_tpu_torch.apps.gradio_ui --tiny --device cpu
@@ -132,7 +132,7 @@ class MultiUserRouter:
     def compute_imgs(self, user_id: str, prompt: str, negative_prompt: str):
         """N preview images as ONE batched denoise and decode inside ONE
         lock hold; their JPEGs are encoded after it, on the engine's device
-        (one J1 call for the N images, then J3 per file), and written to
+        (one J1 and one J3 call for the N images), and written to
         the temporary directory."""
         from latentblending_tpu_torch.video.jpeg import encode_rgb
 

@@ -20,25 +20,45 @@
 //      the image's blocks get AC 0 and the DC of the block before them
 //      (jccoefct.c). Output int16 [B, nblocks, 64], zigzag order.
 //   J2 coef_lerp: round half away from zero of fmaf(1-t, a, t*b) per
-//      coefficient, one launch an in-between frame: native/jpeg_coef_lerp.cpp
-//      :142-157 as g++ -O3 -march=native builds it (the two products
-//      contracted into one FMA).
-//   J3 huff_count / huff_write / stuff_count / stuff_scatter: jchuff.c's
-//      encode_one_block with the standard tables, in four launches around
-//      two torch.cumsum scans: each block's bit count (DC difference to the
-//      previous block of its component, run/size symbols, ZRL, EOB); each
-//      block's bits written at its offset into a zeroed buffer of big-endian
-//      32-bit words with atomicOr (blocks share the words at their ends), the
-//      last block padding the last byte with 1-bits (flush_bits); the 0xFF
-//      bytes counted per 64-byte chunk; then every byte scattered to its place
-//      with a 0x00 after each 0xFF. No restart markers (libjpeg writes none).
+//      coefficient for F fractions a call: native/jpeg_coef_lerp.cpp:142-157
+//      as g++ -O3 -march=native builds it (the two products contracted into
+//      one FMA). Each thread reads 8 coefficients of a and of b once, in
+//      16-byte vectors, and writes them for every fraction of the launch
+//      (kLerpFracs a launch, the fractions passed by value). Output
+//      [F, n, 64].
+//   J3 huff_count, huff_scan, huff_plan | huff_write, stuff_count,
+//      stuff_scan, stuff_scatter | copy_out: jchuff.c's encode_one_block
+//      with the standard tables over F frames [F, n, 64] a call, each frame
+//      coded as libjpeg codes it alone (its DC prediction restarts, its last
+//      byte is padded with 1-bits by flush_bits, its 0xFF bytes are stuffed
+//      with a 0x00 within it; no restart markers). One warp codes one 8x8
+//      block: lane l holds zigzag coefficients 2l and 2l+1, two ballots give
+//      the nonzero mask, each nonzero coefficient's run comes from the
+//      highest set bit below it (__clzll), runs over 15 emit ZRLs, an EOB
+//      only when zeros trail. The count pass sums the lanes' bits per block;
+//      one CTA a frame scans them into frame-local bit offsets (int64: a
+//      1024x1024 batch of 60 frames passes 2^31 bits), and one CTA scans the
+//      frames into the plan: each frame's bytes, its word region (16-byte
+//      aligned) and its stuffing tiles. The host reads the plan once and
+//      sizes the buffers from it, so a call's memory follows the bytes it
+//      codes. The write pass puts each lane's symbols into the block's words
+//      staged in shared memory at the lane's offset (a warp-shuffle scan),
+//      then stores the words, the two at the block's ends with atomicOr
+//      (its neighbours share them). Stuffing works on tiles of 4096 bytes
+//      within a frame, 16 bytes a thread: the tiles' 0xFF counts, one CTA's
+//      scan of them (which also gives each frame's offset in the packed
+//      output), then every byte scattered to its place. Last, the card
+//      copies exactly the packed bytes and the offsets into pinned host
+//      memory, the length read on the card: one host read of the plan, one
+//      wait for the copy.
 //
 // What bounds them on the H100: at 512x512 a frame is 0.39 MB of I420 in and
-// 0.79 MB of coefficients out (J1), 1.6 MB in and 0.79 MB out (J2), and
-// 0.79 MB in plus ~0.1-0.4 MB of scan out (J3): microseconds of memory time.
-// They are bound by latency (J3 takes four launches, two scans and a read of
-// the length by the host) and, in J3, by one thread coding a whole block
-// serially. Simple and right first: nothing here is tuned.
+// 0.79 MB of coefficients out (J1); J2 reads 1.6 MB and writes 0.79 MB a
+// fraction; J3 reads 0.79 MB a frame and writes ~0.1-0.4 MB of scan. A
+// frame's work is microseconds of memory time: one J3 call costs eight
+// launches, a scan of its blocks on one CTA a frame and two waits of the
+// host, so J3 is bound by latency unless a call codes many frames, which is
+// why the movie writer codes a whole gap a call.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -157,131 +177,410 @@ __global__ void __launch_bounds__(384) fdct_quant_kernel(const uint8_t* __restri
   out[((blockIdx.y * nblocks) + (long long)mcu * 6 + blk) * 64 + kZigzagPos[pos]] = (int16_t)res;
 }
 
-__global__ void coef_lerp_kernel(const int16_t* __restrict__ a, const int16_t* __restrict__ b,
-                                 int16_t* __restrict__ out, long long n, float t) {
-  const float wi = __fsub_rn(1.0f, t);
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
-    const float v = __fmaf_rn(wi, (float)a[i], __fmul_rn(t, (float)b[i]));
-    const float r = v >= 0.0f ? __fadd_rn(v, 0.5f) : __fsub_rn(v, 0.5f);
-    out[i] = (int16_t)(int)r;  // the cast truncates toward zero, as (JCOEF) does
+// ---------------------------------------------------------------- J2
+
+constexpr int kLerpFracs = 32;  // fractions a launch takes by value (lb_jpeg_coef_lerp launches as many as F needs)
+
+struct Fracs {
+  float t[kLerpFracs];
+};
+
+// round half away from zero of fmaf(1-t, a, t*b); the cast truncates toward zero, as (JCOEF) does
+__device__ __forceinline__ int lerp_round(float wi, float t, float a, float b) {
+  const float v = __fmaf_rn(wi, a, __fmul_rn(t, b));
+  return (int)(v >= 0.0f ? __fadd_rn(v, 0.5f) : __fsub_rn(v, 0.5f));
+}
+
+__device__ __forceinline__ int lerp_pair(float wi, float t, int a, int b) {
+  const int lo = lerp_round(wi, t, (float)(int16_t)(a & 0xFFFF), (float)(int16_t)(b & 0xFFFF));
+  const int hi = lerp_round(wi, t, (float)(a >> 16), (float)(b >> 16));
+  return (int)(((unsigned)lo & 0xFFFFu) | ((unsigned)hi << 16));
+}
+
+// out[f, i] for the launch's F fractions: a and b read once, in 16-byte vectors of
+// 8 coefficients (n % 8 == 0 and 16-byte aligned pointers, which video/jpeg.py
+// checks); the fraction loop is unrolled so that every fraction is read from the
+// parameter space at a fixed offset
+__global__ void __launch_bounds__(256) coef_lerp_kernel(const int4* __restrict__ a, const int4* __restrict__ b,
+                                                        int4* __restrict__ out, long long items, int F, Fracs fr) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < items; i += stride) {
+    const int4 va = a[i], vb = b[i];
+#pragma unroll
+    for (int f = 0; f < kLerpFracs; ++f) {
+      if (f >= F) break;
+      const float t = fr.t[f], wi = __fsub_rn(1.0f, t);
+      out[f * items + i] = make_int4(lerp_pair(wi, t, va.x, vb.x), lerp_pair(wi, t, va.y, vb.y),
+                                     lerp_pair(wi, t, va.z, vb.z), lerp_pair(wi, t, va.w, vb.w));
+    }
   }
 }
 
+// ---------------------------------------------------------------- J3
+
+constexpr int kCoderWarps = 8;    // 8x8 blocks a CTA of the coder codes at once, one a warp
+constexpr int kStageWords = 72;   // one block's bits staged in shared memory: < 2064 + 31 + 7 bits
+constexpr int kTileBytes = 4096;  // a frame's bytes a CTA of the stuffing passes takes (video/jpeg.py _TILE_BYTES)
+constexpr int kTileThreads = kTileBytes / 16;
+constexpr int kScanThreads = 1024;
+
+// the plan of a call, int64 [3, F+1] (video/jpeg.py reads it): each row the
+// frames' exclusive prefix, its total last. Row 0: scan bytes (the last byte
+// padded); row 1: 32-bit words, each frame's region rounded up to 16 bytes;
+// row 2: stuffing tiles of kTileBytes.
+enum { kPlanBytes = 0, kPlanWords = 1, kPlanTiles = 2 };
+
 __device__ __forceinline__ int nbits_of(int x) { return x ? 32 - __clz(x) : 0; }
 
-// the previous block of the same component in scan order, or -1
-__device__ __forceinline__ int prev_block(int n) {
-  const int p = n % 6;
-  if (p > 0 && p < 4) return n - 1;
-  if (p == 0) return n >= 6 ? n - 3 : -1;
-  return n >= 6 ? n - 6 : -1;
+// bit i of x to bit 2i
+__device__ __forceinline__ unsigned long long spread_bits(unsigned x) {
+  unsigned long long v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  return (v | (v << 1)) & 0x5555555555555555ull;
 }
 
-__device__ void load_tables(const int2* __restrict__ g, int2* sh) {
+// the previous block of the same component in a frame's scan order, or -1;
+// j is frame-local, so a frame's first blocks predict their DC from 0
+__device__ __forceinline__ int prev_block(int j) {
+  const int p = j % 6;
+  if (p > 0 && p < 4) return j - 1;
+  if (p == 0) return j >= 6 ? j - 3 : -1;
+  return j >= 6 ? j - 6 : -1;
+}
+
+// exclusive prefix of v over the CTA (blockDim.x a multiple of 32); *total
+// gets the CTA's sum. Every thread of the CTA must call it.
+__device__ long long cta_exclusive_scan(long long v, long long* total) {
+  __shared__ long long sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  long long x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    long long s = lane < warps ? sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(0xFFFFFFFFu, s, d);
+      if (lane >= d) s += y;
+    }
+    sums[lane] = s;
+  }
+  __syncthreads();
+  const long long out = (warp ? sums[warp - 1] : 0) + x - v;
+  *total = sums[warps - 1];
+  __syncthreads();  // sums is reused by the next call
+  return out;
+}
+
+// One lane's part of a block: lane l holds zigzag coefficients 2l and 2l+1
+// and writes, in stream order, the DC difference (lane 0), then for each of
+// its nonzero AC coefficients the ZRL symbols of its run and its run/size
+// symbol with the value bits, then the EOB (lane 31, when zeros trail).
+// Codes and value bits are packed (code << value bits | value), at most 32 bits.
+struct LaneCode {
+  unsigned dc, c0, c1, eob;
+  int dc_n, c0_n, c1_n, eob_n;
+  int z0, z1;  // ZRL symbols before coefficient 2l and 2l+1
+  int bits;    // all of this lane's bits
+};
+
+__device__ __forceinline__ void symbol(const unsigned* tbl, int index_base, int v, unsigned* code, int* n) {
+  const int nb = nbits_of(abs(v));
+  const unsigned e = tbl[index_base + nb];  // (size << 16) | code
+  *code = ((e & 0xFFFFu) << nb) | ((unsigned)(v < 0 ? v - 1 : v) & ((1u << nb) - 1u));
+  *n = (int)(e >> 16) + nb;
+}
+
+// Every lane of the warp calls it (ballots). tbl: packed DC luma, AC luma,
+// DC chroma, AC chroma (256 each) in shared memory.
+__device__ __forceinline__ LaneCode lane_code(const int16_t* __restrict__ coef, long long block, int j,
+                                              const unsigned* tbl, int lane, unsigned* zrl, int* zrl_n) {
+  const unsigned pair = reinterpret_cast<const unsigned*>(coef + block * 64)[lane];
+  const int v0 = (int16_t)(pair & 0xFFFFu), v1 = (int16_t)(pair >> 16);
+  const unsigned* dc = tbl + (j % 6 < 4 ? 0 : 512);
+  const unsigned* ac = dc + 256;
+  // bit k: coefficient k != 0, for k >= 1
+  const unsigned long long nz = (spread_bits(__ballot_sync(0xFFFFFFFFu, v0 != 0)) |
+                                 (spread_bits(__ballot_sync(0xFFFFFFFFu, v1 != 0)) << 1)) & ~1ull;
+  *zrl = ac[0xF0] & 0xFFFFu;
+  *zrl_n = (int)(ac[0xF0] >> 16);
+  LaneCode c = {};
+  if (lane == 0) {
+    const int pj = prev_block(j);
+    const int pred = pj >= 0 ? coef[(block - j + pj) * 64] : 0;
+    symbol(dc, 0, v0 - pred, &c.dc, &c.dc_n);
+  }
+  const int k0 = 2 * lane, k1 = k0 + 1;
+  if (lane > 0 && v0 != 0) {
+    const unsigned long long below = nz & ((1ull << k0) - 1);
+    const int run = k0 - (below ? 63 - __clzll(below) : 0) - 1;
+    c.z0 = run >> 4;
+    symbol(ac, (run & 15) << 4, v0, &c.c0, &c.c0_n);
+  }
+  if (v1 != 0) {
+    const unsigned long long below = nz & ((1ull << k1) - 1);
+    const int run = k1 - (below ? 63 - __clzll(below) : 0) - 1;
+    c.z1 = run >> 4;
+    symbol(ac, (run & 15) << 4, v1, &c.c1, &c.c1_n);
+  }
+  if (lane == 31 && !(nz >> 63)) {
+    c.eob = ac[0] & 0xFFFFu;
+    c.eob_n = (int)(ac[0] >> 16);
+  }
+  c.bits = c.dc_n + (c.z0 + c.z1) * *zrl_n + c.c0_n + c.c1_n + c.eob_n;
+  return c;
+}
+
+__device__ __forceinline__ void load_tables(const unsigned* __restrict__ g, unsigned* sh) {
   for (int i = threadIdx.x; i < 4 * 256; i += blockDim.x) sh[i] = g[i];
   __syncthreads();
 }
 
-// Calls emit(code, size) for every code and value of block n, in order.
-template <typename Emit>
-__device__ void code_block(const int16_t* __restrict__ coef, const int2* tbl, int n, Emit emit) {
-  const int16_t* blk = coef + (long long)n * 64;
-  const int2* dc = tbl + (n % 6 < 4 ? 0 : 512);
-  const int2* ac = dc + 256;
-  const int pn = prev_block(n);
-  const int diff = blk[0] - (pn >= 0 ? coef[(long long)pn * 64] : 0);
-  int nb = nbits_of(abs(diff));
-  emit(dc[nb].x, dc[nb].y);
-  if (nb) emit((diff < 0 ? diff - 1 : diff) & ((1 << nb) - 1), nb);
-  int run = 0;
-  for (int k = 1; k < 64; ++k) {
-    const int v = blk[k];
-    if (v == 0) {
-      ++run;
-      continue;
+// bits[b]: the bits of block b (one warp a block, the CTAs persistent)
+__global__ void __launch_bounds__(kCoderWarps * 32) huff_count_kernel(const int16_t* __restrict__ coef,
+                                                                      const unsigned* __restrict__ tables,
+                                                                      int* __restrict__ bits, long long blocks, int n) {
+  __shared__ unsigned tbl[4 * 256];
+  load_tables(tables, tbl);
+  const int lane = threadIdx.x & 31;
+  for (long long b = (long long)blockIdx.x * kCoderWarps + (threadIdx.x >> 5); b < blocks;
+       b += (long long)gridDim.x * kCoderWarps) {
+    unsigned zrl;
+    int zrl_n;
+    const LaneCode c = lane_code(coef, b, (int)(b % n), tbl, lane, &zrl, &zrl_n);
+    const int total = __reduce_add_sync(0xFFFFFFFFu, c.bits);
+    if (lane == 0) bits[b] = total;
+  }
+}
+
+// one CTA a frame: off[b], each block's first bit counted from its frame's
+// first bit; frame_bits[f], the frame's bits
+__global__ void __launch_bounds__(kScanThreads) huff_scan_kernel(const int* __restrict__ bits,
+                                                                 long long* __restrict__ off,
+                                                                 long long* __restrict__ frame_bits, int n) {
+  const long long base = (long long)blockIdx.x * n;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int j0 = min((int)threadIdx.x * per, n), j1 = min(j0 + per, n);
+  long long s = 0;
+  for (int j = j0; j < j1; ++j) s += bits[base + j];
+  long long total;
+  long long run = cta_exclusive_scan(s, &total);
+  for (int j = j0; j < j1; ++j) {
+    off[base + j] = run;
+    run += bits[base + j];
+  }
+  if (threadIdx.x == 0) frame_bits[blockIdx.x] = total;
+}
+
+// one CTA: the plan (kPlan* rows) from the frames' bits
+__global__ void __launch_bounds__(kScanThreads) huff_plan_kernel(const long long* __restrict__ frame_bits,
+                                                                 long long* __restrict__ plan, int F) {
+  long long carry[3] = {0, 0, 0};
+  for (int base = 0; base < F; base += blockDim.x) {
+    const int f = base + threadIdx.x;
+    long long v[3] = {0, 0, 0};
+    if (f < F) {
+      v[0] = (frame_bits[f] + 7) >> 3;
+      v[1] = ((v[0] + 15) >> 4) << 2;
+      v[2] = (v[0] + kTileBytes - 1) / kTileBytes;
     }
-    for (; run > 15; run -= 16) emit(ac[0xF0].x, ac[0xF0].y);
-    nb = nbits_of(abs(v));
-    emit(ac[(run << 4) + nb].x, ac[(run << 4) + nb].y);
-    emit((v < 0 ? v - 1 : v) & ((1 << nb) - 1), nb);
-    run = 0;
+    for (int r = 0; r < 3; ++r) {
+      long long total;
+      const long long ex = cta_exclusive_scan(v[r], &total);
+      if (f < F) plan[r * (F + 1) + f] = carry[r] + ex;
+      carry[r] += total;
+    }
   }
-  if (run > 0) emit(ac[0].x, ac[0].y);
+  if (threadIdx.x == 0)
+    for (int r = 0; r < 3; ++r) plan[r * (F + 1) + F] = carry[r];
 }
 
-__global__ void huff_count_kernel(const int16_t* __restrict__ coef, const int2* __restrict__ tables,
-                                  int* __restrict__ counts, int nblocks) {
-  __shared__ int2 tbl[4 * 256];
-  load_tables(tables, tbl);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= nblocks) return;
-  int bits = 0;
-  code_block(coef, tbl, n, [&](int, int size) { bits += size; });
-  counts[n] = bits;
-}
-
-// ORs `size` bits of `code` into the big-endian word stream at bit `pos`
-__device__ __forceinline__ void put_bits(unsigned* words, long long pos, unsigned code, int size) {
+// ORs `size` (<= 32) bits of `code` into the big-endian staged words at bit `pos`
+__device__ __forceinline__ void stage_put(unsigned* st, int pos, unsigned code, int size) {
   if (size == 0) return;
-  const long long w = pos >> 5;
-  const int room = 32 - (int)(pos & 31);
+  const int w = pos >> 5, room = 32 - (pos & 31);
   if (size <= room) {
-    atomicOr(words + w, code << (room - size));
+    atomicOr(st + w, code << (room - size));
   } else {
-    atomicOr(words + w, code >> (size - room));
-    atomicOr(words + w + 1, code << (32 - (size - room)));
+    atomicOr(st + w, code >> (size - room));
+    atomicOr(st + w + 1, code << (32 - (size - room)));
   }
 }
 
-__global__ void huff_write_kernel(const int16_t* __restrict__ coef, const int2* __restrict__ tables,
-                                  const long long* __restrict__ ends, unsigned* __restrict__ words, int nblocks) {
-  __shared__ int2 tbl[4 * 256];
+// Each block's bits at its place in its frame's word region: the warp's lanes
+// put their symbols into the block's staged words (a warp-shuffle scan gives
+// each lane's first bit); then the warp stores the words, the first and the
+// last with atomicOr (neighbouring blocks share them), the rest plainly. The
+// frame's last block pads the last byte with 1-bits (flush_bits).
+__global__ void __launch_bounds__(kCoderWarps * 32) huff_write_kernel(const int16_t* __restrict__ coef,
+                                                                      const unsigned* __restrict__ tables,
+                                                                      const long long* __restrict__ off,
+                                                                      const long long* __restrict__ plan,
+                                                                      unsigned* __restrict__ words, long long blocks,
+                                                                      int n, int F) {
+  __shared__ unsigned tbl[4 * 256];
+  __shared__ unsigned stage[kCoderWarps][kStageWords];
   load_tables(tables, tbl);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= nblocks) return;
-  long long pos = n ? ends[n - 1] : 0;
-  code_block(coef, tbl, n, [&](int code, int size) {
-    put_bits(words, pos, (unsigned)code, size);
-    pos += size;
-  });
-  if (n == nblocks - 1) {
-    const int pad = (int)((8 - (pos & 7)) & 7);  // flush_bits: fill the last byte with 1s
-    put_bits(words, pos, (1u << pad) - 1u, pad);
+  const int lane = threadIdx.x & 31;
+  unsigned* st = stage[threadIdx.x >> 5];
+  for (long long b = (long long)blockIdx.x * kCoderWarps + (threadIdx.x >> 5); b < blocks;
+       b += (long long)gridDim.x * kCoderWarps) {
+    const long long f = b / n;
+    const int j = (int)(b - f * n);
+    unsigned zrl;
+    int zrl_n;
+    const LaneCode c = lane_code(coef, b, j, tbl, lane, &zrl, &zrl_n);
+    int incl = c.bits;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+    const long long local = off[b];
+    const int pad = j == n - 1 ? (int)((8 - ((local + total) & 7)) & 7) : 0;
+    const long long g = 32LL * plan[kPlanWords * (F + 1) + f] + local;
+    const int sh = (int)(g & 31);
+    for (int i = lane; i < kStageWords; i += 32) st[i] = 0;
+    __syncwarp();
+    int pos = sh + incl - c.bits;
+    stage_put(st, pos, c.dc, c.dc_n);
+    pos += c.dc_n;
+    for (int z = 0; z < c.z0; ++z, pos += zrl_n) stage_put(st, pos, zrl, zrl_n);
+    stage_put(st, pos, c.c0, c.c0_n);
+    pos += c.c0_n;
+    for (int z = 0; z < c.z1; ++z, pos += zrl_n) stage_put(st, pos, zrl, zrl_n);
+    stage_put(st, pos, c.c1, c.c1_n);
+    pos += c.c1_n;
+    stage_put(st, pos, c.eob, c.eob_n);
+    pos += c.eob_n;
+    if (lane == 31) stage_put(st, pos, (1u << pad) - 1u, pad);
+    __syncwarp();
+    const int nw = (sh + total + pad + 31) >> 5;
+    unsigned* gw = words + (g >> 5);
+    for (int i = lane; i < nw; i += 32) {
+      if (i == 0 || i == nw - 1)
+        atomicOr(gw + i, st[i]);
+      else
+        gw[i] = st[i];
+    }
+    __syncwarp();  // the stage is cleared for the next block
   }
 }
 
-__device__ __forceinline__ unsigned stream_byte(const unsigned* words, long long k) {
-  return (words[k >> 2] >> (24 - 8 * (int)(k & 3))) & 0xFFu;
+__device__ __forceinline__ int ff_bytes(unsigned w) { return __popc(__vcmpeq4(w, 0xFFFFFFFFu)) >> 3; }
+
+// the frame of stuffing tile t: the last f with plan[tiles][f] <= t
+__device__ __forceinline__ int frame_of_tile(const long long* __restrict__ tiles, int F, long long t) {
+  int lo = 0, hi = F;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (tiles[mid] <= t) lo = mid; else hi = mid;
+  }
+  return lo;
 }
 
-__global__ void stuff_count_kernel(const unsigned* __restrict__ words, const long long* __restrict__ ends,
-                                   int* __restrict__ ffs, int nblocks, int chunks) {
-  const int ci = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ci >= chunks) return;
-  const long long nbytes = (ends[nblocks - 1] + 7) >> 3;
-  const long long k0 = (long long)ci * kStuffChunk, k1 = min(k0 + kStuffChunk, nbytes);
-  int count = 0;
-  for (long long k = k0; k < k1; ++k) count += stream_byte(words, k) == 0xFFu;
-  ffs[ci] = count;
+// Where thread threadIdx.x of stuffing tile blockIdx.x reads: its frame f,
+// the frame-local byte k of its 16 bytes and the frame's bytes u; v holds the
+// bytes (zeros past u, which are never 0xFF).
+struct TileSpan {
+  int f;
+  long long k, u;
+  uint4 v;
+};
+
+__device__ __forceinline__ TileSpan tile_span(const unsigned* __restrict__ words, const long long* __restrict__ plan,
+                                              int F) {
+  __shared__ int frame;
+  if (threadIdx.x == 0) frame = frame_of_tile(plan + kPlanTiles * (F + 1), F, blockIdx.x);
+  __syncthreads();
+  TileSpan s;
+  s.f = frame;
+  s.u = plan[s.f + 1] - plan[s.f];
+  s.k = (blockIdx.x - plan[kPlanTiles * (F + 1) + s.f]) * kTileBytes + 16LL * threadIdx.x;
+  s.v = make_uint4(0, 0, 0, 0);
+  if (s.k < s.u) s.v = *reinterpret_cast<const uint4*>(words + plan[kPlanWords * (F + 1) + s.f] + (s.k >> 2));
+  return s;
 }
 
-__global__ void stuff_scatter_kernel(const unsigned* __restrict__ words, const long long* __restrict__ ends,
-                                     const long long* __restrict__ ff_ends, uint8_t* __restrict__ out,
-                                     long long* __restrict__ length, int nblocks, int chunks) {
-  const int ci = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ci >= chunks) return;
-  const long long nbytes = (ends[nblocks - 1] + 7) >> 3;
-  if (ci == 0) *length = nbytes + ff_ends[chunks - 1];
-  const long long k0 = (long long)ci * kStuffChunk, k1 = min(k0 + kStuffChunk, nbytes);
-  long long dst = k0 + (ci ? ff_ends[ci - 1] : 0);
-  for (long long k = k0; k < k1; ++k) {
-    const unsigned byte = stream_byte(words, k);
+// tile_ff[t]: the 0xFF bytes of stuffing tile t (tiles never cross frames)
+__global__ void __launch_bounds__(kTileThreads) stuff_count_kernel(const unsigned* __restrict__ words,
+                                                                   const long long* __restrict__ plan,
+                                                                   int* __restrict__ tile_ff, int F) {
+  const TileSpan s = tile_span(words, plan, F);
+  long long total;
+  cta_exclusive_scan(ff_bytes(s.v.x) + ff_bytes(s.v.y) + ff_bytes(s.v.z) + ff_bytes(s.v.w), &total);
+  if (threadIdx.x == 0) tile_ff[blockIdx.x] = (int)total;
+}
+
+// one CTA: tile_pre[t], the 0xFF bytes before tile t; stuffed[f], frame f's
+// first byte in the stuffed output, stuffed[F] its length
+__global__ void __launch_bounds__(kScanThreads) stuff_scan_kernel(const int* __restrict__ tile_ff,
+                                                                  const long long* __restrict__ plan,
+                                                                  long long* __restrict__ tile_pre,
+                                                                  long long* __restrict__ stuffed, int F, int tiles) {
+  long long carry = 0;
+  for (int base = 0; base < tiles; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    long long total;
+    const long long ex = cta_exclusive_scan(t < tiles ? tile_ff[t] : 0, &total);
+    if (t < tiles) tile_pre[t] = carry + ex;
+    carry += total;
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f <= F; f += blockDim.x) {
+    const long long t = plan[kPlanTiles * (F + 1) + f];
+    stuffed[f] = plan[f] + (t < tiles ? tile_pre[t] : carry);
+  }
+}
+
+// every byte of every frame to its place in the packed output, a 0x00 after
+// each 0xFF (a CTA scan of the threads' 0xFF counts gives each thread's shift)
+__global__ void __launch_bounds__(kTileThreads) stuff_scatter_kernel(const unsigned* __restrict__ words,
+                                                                     const long long* __restrict__ plan,
+                                                                     const long long* __restrict__ tile_pre,
+                                                                     uint8_t* __restrict__ out, int F) {
+  const TileSpan s = tile_span(words, plan, F);
+  long long total;
+  const long long ex = cta_exclusive_scan(ff_bytes(s.v.x) + ff_bytes(s.v.y) + ff_bytes(s.v.z) + ff_bytes(s.v.w), &total);
+  if (s.k >= s.u) return;
+  long long dst = plan[s.f] + tile_pre[blockIdx.x] + s.k + ex;
+  const unsigned w[4] = {s.v.x, s.v.y, s.v.z, s.v.w};
+  const int nb = (int)min(16LL, s.u - s.k);
+  for (int i = 0; i < nb; ++i) {
+    const unsigned byte = (w[i >> 2] >> (24 - 8 * (i & 3))) & 0xFFu;
     out[dst++] = (uint8_t)byte;
     if (byte == 0xFFu) out[dst++] = 0;
   }
 }
 
+// the stuffed bytes (their length stuffed[F] read on the card) and the
+// offsets into host memory the card can write (pinned), 16 bytes at a time
+__global__ void __launch_bounds__(256) copy_out_kernel(const uint8_t* __restrict__ src,
+                                                       const long long* __restrict__ stuffed, int F,
+                                                       uint8_t* __restrict__ dst, long long* __restrict__ dst_off) {
+  const long long total = stuffed[F], vecs = total >> 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = i0; i < vecs; i += stride) reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+  for (long long i = (vecs << 4) + i0; i < total; i += stride) dst[i] = src[i];
+  for (long long i = i0; i <= F; i += stride) dst_off[i] = stuffed[i];
+}
+
 int blocks_for(long long n, int threads) { return (int)((n + threads - 1) / threads); }
+
+int coder_ctas(long long blocks) {
+  const long long need = (blocks + kCoderWarps - 1) / kCoderWarps;
+  return (int)(need < 132 * 16 ? need : 132 * 16);
+}
 
 }  // namespace
 
@@ -293,36 +592,85 @@ extern "C" int lb_jpeg_fdct_quant(const void* frames, const void* quant, void* o
   return (int)cudaGetLastError();
 }
 
-extern "C" int lb_jpeg_coef_lerp(const void* a, const void* b, void* out, int64_t n, float t, void* stream) {
-  const int grid = blocks_for(n, 256) < 132 * 16 ? blocks_for(n, 256) : 132 * 16;
-  coef_lerp_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const int16_t*)a, (const int16_t*)b, (int16_t*)out,
-                                                           (long long)n, t);
-  return (int)cudaGetLastError();
+// J2: out [F, n] = round((1 - ts[f]) * a + ts[f] * b); ts is host memory
+// (F floats), passed to the kernels by value, kLerpFracs a launch; n % 8 == 0
+// and a, b, out 16-byte aligned (video/jpeg.py coef_lerp_batch checks both)
+extern "C" int lb_jpeg_coef_lerp(const void* a, const void* b, void* out, int64_t n, const float* ts, int F,
+                                 void* stream) {
+  const long long items = n / 8;
+  const int grid = blocks_for(items, 256) < 132 * 16 ? blocks_for(items, 256) : 132 * 16;
+  for (int f0 = 0; f0 < F; f0 += kLerpFracs) {
+    Fracs fr;
+    const int nf = F - f0 < kLerpFracs ? F - f0 : kLerpFracs;
+    for (int i = 0; i < kLerpFracs; ++i) fr.t[i] = i < nf ? ts[f0 + i] : 0.0f;
+    coef_lerp_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const int4*)a, (const int4*)b,
+                                                             (int4*)out + f0 * items, items, nf, fr);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
-extern "C" int lb_jpeg_huff_count(const void* coef, const void* tables, void* counts, int n, void* stream) {
-  huff_count_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>((const int16_t*)coef,
-                                                                          (const int2*)tables, (int*)counts, n);
-  return (int)cudaGetLastError();
+#define LB_LAUNCHED()                          \
+  do {                                         \
+    const cudaError_t e = cudaGetLastError();  \
+    if (e != cudaSuccess) return (int)e;       \
+  } while (0)
+
+// J3, first half: the bits of every block of F frames of n blocks (coef
+// [F, n, 64]), their frame-local offsets and the plan [3, F+1]
+extern "C" int lb_jpeg_huff_count(const void* coef, const void* tables, void* bits, void* off, void* frame_bits,
+                                  void* plan, int n, int F, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long blocks = (long long)F * n;
+  huff_count_kernel<<<coder_ctas(blocks), kCoderWarps * 32, 0, s>>>((const int16_t*)coef, (const unsigned*)tables,
+                                                                    (int*)bits, blocks, n);
+  LB_LAUNCHED();
+  huff_scan_kernel<<<F, kScanThreads, 0, s>>>((const int*)bits, (long long*)off, (long long*)frame_bits, n);
+  LB_LAUNCHED();
+  huff_plan_kernel<<<1, kScanThreads, 0, s>>>((const long long*)frame_bits, (long long*)plan, F);
+  LB_LAUNCHED();
+  return 0;
 }
 
-extern "C" int lb_jpeg_huff_write(const void* coef, const void* tables, const void* ends, void* words, int n,
-                                  void* stream) {
-  huff_write_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coef, (const int2*)tables, (const long long*)ends, (unsigned*)words, n);
-  return (int)cudaGetLastError();
+// J3, second half, sized by the plan the host read: the words (words_n of
+// them, zeroed here), the stuffing tiles' counts and prefixes, and the F
+// stuffed scans packed into out with their offsets stuffed [F+1]
+extern "C" int lb_jpeg_huff_code(const void* coef, const void* tables, const void* off, const void* plan,
+                                 void* words, int64_t words_n, void* tile_ff, void* tile_pre, void* stuffed,
+                                 void* out, int n, int F, int tiles, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long blocks = (long long)F * n;
+  cudaError_t e = cudaMemsetAsync(words, 0, (size_t)words_n * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  huff_write_kernel<<<coder_ctas(blocks), kCoderWarps * 32, 0, s>>>(
+      (const int16_t*)coef, (const unsigned*)tables, (const long long*)off, (const long long*)plan, (unsigned*)words,
+      blocks, n, F);
+  LB_LAUNCHED();
+  stuff_count_kernel<<<tiles, kTileThreads, 0, s>>>((const unsigned*)words, (const long long*)plan, (int*)tile_ff, F);
+  LB_LAUNCHED();
+  stuff_scan_kernel<<<1, kScanThreads, 0, s>>>((const int*)tile_ff, (const long long*)plan, (long long*)tile_pre,
+                                               (long long*)stuffed, F, tiles);
+  LB_LAUNCHED();
+  stuff_scatter_kernel<<<tiles, kTileThreads, 0, s>>>((const unsigned*)words, (const long long*)plan,
+                                                      (const long long*)tile_pre, (uint8_t*)out, F);
+  LB_LAUNCHED();
+  return 0;
 }
 
-extern "C" int lb_jpeg_stuff_count(const void* words, const void* ends, void* ffs, int n, int chunks, void* stream) {
-  stuff_count_kernel<<<blocks_for(chunks, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const unsigned*)words, (const long long*)ends, (int*)ffs, n, chunks);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int lb_jpeg_stuff_scatter(const void* words, const void* ends, const void* ff_ends, void* out,
-                                     void* length, int n, int chunks, void* stream) {
-  stuff_scatter_kernel<<<blocks_for(chunks, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const unsigned*)words, (const long long*)ends, (const long long*)ff_ends, (uint8_t*)out, (long long*)length,
-      n, chunks);
+// J3's read: the stuffed bytes (at most capacity) and their offsets copied by
+// the card into pinned host memory, the length taken from stuffed[F] on the card
+extern "C" int lb_jpeg_huff_copy(const void* out, const void* stuffed, int F, int64_t capacity, void* host_bytes,
+                                 void* host_off, void* stream) {
+  void* db = nullptr;
+  void* doff = nullptr;
+  cudaError_t e = cudaHostGetDevicePointer(&db, host_bytes, 0);
+  if (e == cudaSuccess) e = cudaHostGetDevicePointer(&doff, host_off, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (((uintptr_t)db | (uintptr_t)out) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const long long vecs = capacity / 16 + 1;
+  const int grid = blocks_for(vecs, 256) < 264 ? blocks_for(vecs, 256) : 264;
+  copy_out_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const uint8_t*)out, (const long long*)stuffed, F,
+                                                          (uint8_t*)db, (long long*)doff);
   return (int)cudaGetLastError();
 }

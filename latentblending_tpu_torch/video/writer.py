@@ -189,8 +189,10 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
 
     With the MJPEG backend everything is encoded on the writer's device:
     - LB_COEF_LERP unset or "1" (the default): each keyframe's quantized
-      coefficients (J1) give its sample (J3), and each in-between frame is
-      the lerp of its gap's two coefficient sets (J2) coded by J3; only the
+      coefficients (J1); each gap's in-between frames are the lerps of its
+      two coefficient sets, and at t = 1 the next keyframe's own (one J2
+      call), all coded in one J3 call (the first keyframe's sample, and the
+      quality probes that settle the movie's quality, one J3 call each); only the
       finished bytes cross to the host. The JAX package's gate picks this
       path by host cores, which do not encode here.
     - "0": the pixel path: keyframes as RGB (I420 converted first, as the
@@ -235,9 +237,10 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
             raise ValueError(f"keyframe shape {tuple(hw)} != movie shape {(h, w)}")
         return torch.from_numpy(a).to(mj.device), ("i420" if is_i420(a) else "rgb")
 
-    def encode(key: tuple[torch.Tensor, str]) -> tuple[bytes, torch.Tensor]:
-        """(sample, coefficients) of a keyframe; the first settles the
-        writer's quality for the movie (calibrate_quality), so every sample
+    def first(key: tuple[torch.Tensor, str]) -> tuple[bytes, torch.Tensor]:
+        """(sample, coefficients) of the first keyframe; unless an earlier
+        part of the movie did, it settles the writer's quality for the movie
+        (calibrate_quality, a J1 and a J3 call a probe), so every sample
         shares its quant tables."""
         frame, fmt = key
         coefs: dict = {}
@@ -251,14 +254,16 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
 
     counts = frame_insert_counts(len(handles), nmb_frames_target)
     with mj.encoding():
-        jcur, ccur = encode(prep(handles[0]))
+        jcur, ccur = first(prep(handles[0]))
         ms.write_encoded(jcur)
         for i in range(len(handles) - 1):
-            jnxt, cnxt = encode(prep(handles[i + 1]))
+            frame, fmt = prep(handles[i + 1])
+            cnxt = jpeg.fdct_quant(frame[None], mj.quality, fmt)[0]
+            # the gap's in-between frames, then at t = 1 the next keyframe's
+            # sample: one J2 and one J3 call
             gap = jpeg.CoefFrames(ccur, cnxt, h, w, mj.quality)
-            for f in np.linspace(0, 1, counts[i] + 2)[1:-1]:
-                ms.write_encoded(gap.lerp(float(f)))
-            ms.write_encoded(jnxt)
+            for jpg in gap.lerp_many(np.linspace(0, 1, counts[i] + 2)[1:]):
+                ms.write_encoded(jpg)
             ccur = cnxt
 
 

@@ -17,11 +17,20 @@ libjpeg, on the CPU (the plain versions of kernels J1-J3).
 - J3's plain coder on synthetic coefficients (long zero runs, ZRL,
   extreme values, no EOB) gives a scan that cv2.imdecode reads and whose
   coefficients decode back exactly.
-- J3's kernel scheme (per-block bit counts, their scan, per-block bit
-  writers into big-endian words, the last byte padded by the last block,
-  chunked 0xFF stuffing) emulated with numpy gives the plain coder's bytes.
-- On a card (marked `gpu`, skipped here): J1-J3 against their plain
-  versions, exactly; chip_smoke.py's movie phase runs the same checks.
+- J3's batched kernel scheme (one warp per block: lanes' symbols from two
+  ballots, a shuffle scan of their bits; a frame-local scan of the blocks;
+  each frame's bytes, 16-byte word regions and stuffing tiles; words staged
+  and stored, edges ORed; 0xFF counts by tiles, their scan, the scatter)
+  emulated with numpy on 1, 2 and 5 mixed frames gives each frame's plain
+  scan, packed; a flattened DC index would not.
+- `huffman_scan_batch`, `coef_lerp_batch` and `CoefFrames.lerp_many` (one
+  J2 and one J3 call for a gap; at t = 1 b's own sample) equal the plain
+  coder, the plain lerp and the JAX package's `JpegPair.lerp` frame by
+  frame; a gap split over several calls (MAX_CALL_COEF_BYTES lowered)
+  keeps its samples' order.
+- On a card (marked `gpu`, skipped here): J1-J3, single and batched,
+  against their plain versions, exactly; chip_smoke.py's movie phase runs
+  the same checks.
 """
 import cv2
 import numpy as np
@@ -187,6 +196,56 @@ def test_coef_frames_lerp_bytes_equal_jpeg_pair(hw):
         jpeg.CoefFrames(ca, cb[:-6], h, w, 90)
 
 
+@pytest.mark.parametrize("hw", SIZES)
+def test_coef_frames_lerp_many_bytes_equal_jpeg_pair(hw):
+    """lerp_many codes a gap in one J2 and one J3 call: each sample is
+    JpegPair.lerp's, and at t = 1 (the writer's last fraction of a gap)
+    b's own, libjpeg's encode of b."""
+    h, w = hw
+    a, b = (rgb_to_i420(_frame("noise", h, w, seed)) for seed in (5, 6))
+    pair = JpegPair(jax_encode_i420(a, w, h, 80), jax_encode_i420(b, w, h, 80))
+    ca, cb = (jpeg.fdct_quant(torch.from_numpy(f)[None], 80)[0] for f in (a, b))
+    gap = jpeg.CoefFrames(ca, cb, h, w, 80)
+    fracts = [float(t) for t in np.linspace(0, 1, 23)[1:-1]] + [0.5, 1e-7]
+    assert gap.lerp_many(fracts) == [pair.lerp(t) for t in fracts]
+    got = gap.lerp_many(fracts[:3] + [1.0])
+    assert got == [pair.lerp(t) for t in fracts[:3]] + [jax_encode_i420(b, w, h, 80)]
+    assert gap.lerp_many([]) == []
+
+
+@pytest.mark.parametrize("per_call", [1, 3])
+def test_coef_frames_lerp_many_splits_long_gaps_in_order(monkeypatch, per_call):
+    """Above MAX_CALL_COEF_BYTES a gap is coded in several J2 + J3 calls of
+    at most that many coefficients each; the samples keep the fractions'
+    order and are JpegPair.lerp's, b's own at t = 1."""
+    h, w = SIZES[0]
+    a, b = (rgb_to_i420(_frame("noise", h, w, seed)) for seed in (7, 8))
+    pair = JpegPair(jax_encode_i420(a, w, h, 80), jax_encode_i420(b, w, h, 80))
+    ca, cb = (jpeg.fdct_quant(torch.from_numpy(f)[None], 80)[0] for f in (a, b))
+    monkeypatch.setattr(jpeg, "MAX_CALL_COEF_BYTES", ca.numel() * 2 * per_call + 1)
+    calls = []
+    lerp_batch = jpeg.coef_lerp_batch
+    monkeypatch.setattr(jpeg, "coef_lerp_batch", lambda x, y, ts: calls.append(list(ts)) or lerp_batch(x, y, ts))
+    fracts = [float(t) for t in np.linspace(0, 1, 9)[1:]]
+    got = jpeg.CoefFrames(ca, cb, h, w, 80).lerp_many(fracts)
+    assert calls == [fracts[i:i + per_call] for i in range(0, len(fracts), per_call)]
+    assert got == [pair.lerp(t) for t in fracts[:-1]] + [jax_encode_i420(b, w, h, 80)]
+
+
+def test_coef_lerp_batch_equals_reference_per_fraction():
+    rng = np.random.default_rng(1)
+    a, b = (torch.from_numpy(rng.integers(-1024, 1024, (36, 64))).to(torch.int16) for _ in range(2))
+    ts = [0.0, 1 / 3, 0.5, 0.7, 1.0, 2.0 ** -20] + [float(t) for t in np.linspace(0, 1, 40)[1:-1]]
+    got = jpeg.coef_lerp_batch(a, b, ts)
+    assert got.shape == (len(ts), 36, 64) and got.dtype == torch.int16
+    for t, g in zip(ts, got):
+        assert torch.equal(g, jpeg.coef_lerp_reference(a, b, t)), t
+    assert torch.equal(jpeg.coef_lerp(a, b, ts[1]), got[1])
+    assert jpeg.coef_lerp_batch(a, b, []).shape == (0, 36, 64)
+    with pytest.raises(ValueError, match="coef_lerp"):
+        jpeg.coef_lerp_batch(a, b[:-1], ts)
+
+
 def test_coef_lerp_reference_is_one_fma():
     """The plain J2 rounds (1-t)·a + t·b once after t·b (fmaf), not after each product."""
     a = torch.arange(-2048, 2048, dtype=torch.int16)
@@ -252,81 +311,167 @@ def test_huffman_reference_scan_decodes(hw):
     assert jpeg.encode_coefs(coef, 128, 128, 75) == want
 
 
-def _emulate_j3(coef: torch.Tensor) -> bytes:
-    """csrc/jpeg.cu's J3 scheme in numpy/Python: block n's bits from the
-    DC of block prev_block(n) alone; offsets by a scan of the counts; each
-    block ORs its bits into big-endian 32-bit words; the last block pads;
-    stuffing by 64-byte chunks with a scan of their 0xFF counts."""
-    c = coef.numpy().astype(np.int64)
-    n = len(c)
+def _spread_bits(x: int) -> int:
+    """csrc/jpeg.cu spread_bits: bit i of a 32-bit x to bit 2i."""
+    v = x
+    for shift, mask in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF), (4, 0x0F0F0F0F0F0F0F0F),
+                        (2, 0x3333333333333333), (1, 0x5555555555555555)):
+        v = (v | (v << shift)) & mask
+    return v
+
+
+def _symbol(table, index_base: int, v: int) -> tuple[int, int]:
+    """csrc/jpeg.cu symbol(): the code of table[index_base + size] and v's value bits, packed."""
+    nb = abs(v).bit_length()
+    code, size = (int(x) for x in table[index_base + nb])
+    return (code << nb) | ((v - 1 if v < 0 else v) & ((1 << nb) - 1)), size + nb
+
+
+def _lane_codes(c: np.ndarray, j: int, pred: int) -> list[list[tuple[int, int]]]:
+    """csrc/jpeg.cu lane_code for every lane of the warp coding one block
+    (zigzag coefficients c [64], frame-local index j, DC predictor pred):
+    each lane's (packed code, bits) in stream order. Lane l holds
+    coefficients 2l and 2l+1; the nonzero mask comes from two ballots
+    spread into one 64-bit word, runs from the highest set bit below."""
     t = jpeg.HUFF_TABLES
-
-    def prev_block(i):
-        p = i % 6
-        if 0 < p < 4:
-            return i - 1
-        if p == 0:
-            return i - 3 if i >= 6 else -1
-        return i - 6 if i >= 6 else -1
-
-    def code_block(i):
-        dc, ac = (t[0], t[1]) if i % 6 < 4 else (t[2], t[3])
-        pn = prev_block(i)
-        diff = int(c[i, 0]) - (int(c[pn, 0]) if pn >= 0 else 0)
-        nb = abs(diff).bit_length()
-        out = [tuple(dc[nb])] + ([((diff - 1 if diff < 0 else diff) & ((1 << nb) - 1), nb)] if nb else [])
-        run = 0
-        for k in range(1, 64):
-            v = int(c[i, k])
-            if v == 0:
-                run += 1
+    dc, ac = (t[0], t[1]) if j % 6 < 4 else (t[2], t[3])
+    even = sum(1 << l for l in range(32) if c[2 * l])
+    odd = sum(1 << l for l in range(32) if c[2 * l + 1])
+    nz = (_spread_bits(even) | (_spread_bits(odd) << 1)) & ~1
+    zrl = tuple(int(x) for x in ac[0xF0])
+    lanes = []
+    for lane in range(32):
+        syms = [_symbol(dc, 0, int(c[0]) - pred)] if lane == 0 else []
+        for k in (2 * lane, 2 * lane + 1):
+            if k == 0 or not c[k]:
                 continue
-            while run > 15:
-                out.append(tuple(ac[0xF0]))
-                run -= 16
-            nb = abs(v).bit_length()
-            out += [tuple(ac[(run << 4) + nb]), ((v - 1 if v < 0 else v) & ((1 << nb) - 1), nb)]
-            run = 0
-        if run:
-            out.append(tuple(ac[0]))
-        return out
+            below = nz & ((1 << k) - 1)
+            run = k - (below.bit_length() - 1 if below else 0) - 1
+            syms += [zrl] * (run >> 4) + [_symbol(ac, (run & 15) << 4, int(c[k]))]
+        if lane == 31 and not nz >> 63:
+            syms.append(tuple(int(x) for x in ac[0]))
+        lanes.append(syms)
+    return lanes
 
-    symbols = [code_block(i) for i in range(n)]
-    ends = np.cumsum([sum(s for _, s in syms) for syms in symbols])
-    words = np.zeros(int(ends[-1]) // 32 + 2, np.uint64)
 
-    def put(pos, code, size):
-        if size == 0:
-            return
-        w, room = pos >> 5, 32 - (pos & 31)
-        if size <= room:
-            words[w] |= np.uint64(code << (room - size))
-        else:
-            words[w] |= np.uint64(code >> (size - room))
-            words[w + 1] |= np.uint64((code << (32 - (size - room))) & 0xFFFFFFFF)
+def _prev_block(j: int) -> int:
+    p = j % 6
+    if 0 < p < 4:
+        return j - 1
+    if p == 0:
+        return j - 3 if j >= 6 else -1
+    return j - 6 if j >= 6 else -1
 
-    for i, syms in enumerate(symbols):
-        pos = int(ends[i - 1]) if i else 0
-        for code, size in syms:
-            put(pos, int(code), int(size))
-            pos += int(size)
-        if i == n - 1:
-            pad = (8 - (pos & 7)) & 7
-            put(pos, (1 << pad) - 1, pad)
-    nbytes = (int(ends[-1]) + 7) >> 3
-    stream = [int(words[k >> 2] >> np.uint64(24 - 8 * (k & 3))) & 0xFF for k in range(nbytes)]
-    chunks = -(-nbytes // 64)
-    ff_ends = np.cumsum([sum(b == 0xFF for b in stream[ci * 64:(ci + 1) * 64]) for ci in range(chunks)])
-    out = bytearray(nbytes + int(ff_ends[-1]))
-    for ci in range(chunks):
-        dst = ci * 64 + (int(ff_ends[ci - 1]) if ci else 0)
-        for b in stream[ci * 64:(ci + 1) * 64]:
-            out[dst] = b
-            dst += 1
-            if b == 0xFF:
-                out[dst] = 0
-                dst += 1
-    return bytes(out)
+
+def _emulate_j3(coef: torch.Tensor, frame_local: bool = True) -> tuple[bytes, list[int]]:
+    """csrc/jpeg.cu's batched J3 in numpy/Python on coef [F, n, 64]: the
+    packed stuffed scans and their offsets [F+1].
+
+    huff_count: each block's bits from its lanes' symbols. huff_scan: each
+    block's first bit counted from its frame's (frame_local=False predicts
+    the DC across frames instead, the bug a flattened index would make).
+    huff_plan: the frames' byte, word (16-byte regions) and tile offsets.
+    huff_write: each warp stages its block's bits from its lanes' offsets
+    (a shuffle scan), the frame's last block pads, and the staged words go
+    out, interior words stored plainly, the first and last ORed (the test
+    checks that no other block touches an interior word). stuff_count,
+    stuff_scan, stuff_scatter: 16 bytes a thread, tiles of _TILE_BYTES
+    within a frame, each frame's first stuffed byte from its first tile's
+    prefix."""
+    c = coef.numpy().astype(np.int64)
+    F, n = c.shape[:2]
+    flat = c.reshape(F * n, 64)
+    tile = jpeg._TILE_BYTES
+
+    def codes(b):
+        f, j = divmod(b, n)
+        pj = _prev_block(j if frame_local else b)
+        pb = (f * n + pj) if frame_local else pj
+        return _lane_codes(flat[b], j, int(flat[pb, 0]) if pj >= 0 else 0)
+
+    lanes = [codes(b) for b in range(F * n)]
+    bits = np.array([sum(s for syms in ls for _, s in syms) for ls in lanes], np.int64).reshape(F, n)
+    off = np.cumsum(bits, axis=1) - bits
+    frame_bytes = (bits.sum(axis=1) + 7) >> 3
+    plan = [np.concatenate([[0], np.cumsum(v)]) for v in
+            (frame_bytes, ((frame_bytes + 15) >> 4) << 2, -(-frame_bytes // tile))]
+    words = np.zeros(int(plan[1][F]), np.uint64)
+    interior, edge = set(), set()
+    for b in range(F * n):
+        f, j = divmod(b, n)
+        g = 32 * int(plan[1][f]) + int(off[f, j])
+        sh, total = g & 31, int(bits[f, j])
+        pad = (8 - ((int(off[f, j]) + total) & 7)) & 7 if j == n - 1 else 0
+        stage = [0] * 72
+
+        def put(pos, code, size):
+            if size == 0:
+                return
+            w, room = pos >> 5, 32 - (pos & 31)
+            if size <= room:
+                stage[w] |= code << (room - size)
+            else:
+                stage[w] |= code >> (size - room)
+                stage[w + 1] |= (code << (32 - (size - room))) & 0xFFFFFFFF
+
+        pos = sh
+        for lane, syms in enumerate(lanes[b]):  # pos runs through the lanes' exclusive prefixes
+            for code, size in syms:
+                put(pos, code, size)
+                pos += size
+        put(pos, (1 << pad) - 1, pad)
+        nw = (sh + total + pad + 31) >> 5
+        for i in range(nw):
+            w = (g >> 5) + i
+            (edge if i in (0, nw - 1) else interior).add(w)
+            words[w] |= np.uint64(stage[i])
+    assert not interior & edge, "an interior word shared with another block"
+    stream = [(int(words[k >> 2]) >> (24 - 8 * (k & 3))) & 0xFF for k in range(4 * len(words))]
+
+    def tile_bytes(t):
+        f = int(np.searchsorted(plan[2], t, side="right")) - 1
+        k0 = (t - int(plan[2][f])) * tile
+        base, u = 4 * int(plan[1][f]), int(plan[0][f + 1] - plan[0][f])
+        return f, k0, [stream[base + k0 + 16 * th: base + k0 + 16 * th + 16] if k0 + 16 * th < u else []
+                       for th in range(tile // 16)]
+
+    tiles = int(plan[2][F])
+    tile_ff = [sum(x.count(0xFF) for x in tile_bytes(t)[2]) for t in range(tiles)]
+    tile_pre = np.concatenate([[0], np.cumsum(tile_ff)])
+    stuffed = [int(plan[0][f]) + int(tile_pre[int(plan[2][f])]) for f in range(F + 1)]
+    out = bytearray(2 * int(plan[0][F]) + 16)
+    for t in range(tiles):
+        f, k0, threads = tile_bytes(t)
+        u = int(plan[0][f + 1] - plan[0][f])
+        ex = 0
+        for th, x in enumerate(threads):
+            k = k0 + 16 * th
+            if k < u:
+                dst = int(plan[0][f]) + int(tile_pre[t]) + k + ex
+                for byte in x[:min(16, u - k)]:
+                    out[dst] = byte
+                    dst += 1
+                    if byte == 0xFF:
+                        out[dst] = 0
+                        dst += 1
+            ex += x.count(0xFF)
+    return bytes(out[:stuffed[F]]), stuffed
+
+
+def _mixed_frames(F: int) -> torch.Tensor:
+    """F frames' coefficients at 64×96, each scan of another length: I420
+    noise at q 100 (a 0xFF byte to stuff in every ~100), flat and gradient
+    at q 90 (short scans), synthetic (ZRL, no EOB)."""
+    def frame(i):
+        kind = ("noise", "flat", "gradient", "synthetic", "noise")[i % 5]
+        if kind == "synthetic":
+            return _synthetic_coefficients(24, seed=i)
+        if kind == "noise":
+            i420 = np.random.default_rng(i).integers(0, 256, (96, 96), dtype=np.uint8)
+            return jpeg.fdct_quant(torch.from_numpy(i420)[None], 100)[0]
+        i420 = rgb_to_i420(_frame(kind, 64, 96, i))
+        return jpeg.fdct_quant(torch.from_numpy(i420)[None], 90)[0]
+    return torch.stack([frame(i) for i in range(F)])
 
 
 def test_huffman_kernel_scheme_matches_reference():
@@ -337,15 +482,49 @@ def test_huffman_kernel_scheme_matches_reference():
     refs = [jpeg.huffman_scan_reference(coef) for coef in frames]
     assert sum(r.count(b"\xff\x00") for r in refs) > 10  # the stuffing pass has work
     for coef, ref in zip(frames, refs):
-        assert _emulate_j3(coef) == ref
+        assert _emulate_j3(coef[None]) == (ref, [0, len(ref)])
+
+
+@pytest.mark.parametrize("F", [1, 2, 5])
+def test_huffman_batch_scheme_matches_reference(F):
+    """The batched scheme on F mixed frames packs each frame's own scan
+    (frame-local DC, padding and stuffing) back to back."""
+    coef = _mixed_frames(F)
+    refs = [jpeg.huffman_scan_reference(c) for c in coef]
+    packed, offs = _emulate_j3(coef)
+    assert offs == list(np.cumsum([0] + [len(r) for r in refs]))
+    assert packed == b"".join(refs)
+    if F == 5:
+        assert len({len(r) for r in refs}) == F and refs[0].count(b"\xff\x00") > 100
+
+
+def test_huffman_batch_scheme_predicts_dc_within_each_frame():
+    """Frame 1's first blocks predict their DC from 0, not from frame 0's
+    last blocks: a scheme that indexed the flattened batch would differ."""
+    coef = torch.zeros((2, 12, 64), dtype=torch.int16)
+    coef[0, :, 0] = 300
+    coef[1, :, 0] = torch.arange(12, dtype=torch.int16) * 7 - 40
+    refs = [jpeg.huffman_scan_reference(c) for c in coef]
+    assert _emulate_j3(coef) == (b"".join(refs), [0, len(refs[0]), len(refs[0]) + len(refs[1])])
+    assert _emulate_j3(coef, frame_local=False)[0] != b"".join(refs)
+
+
+@pytest.mark.parametrize("F", [1, 2, 5])
+def test_huffman_scan_batch_equals_reference(F):
+    coef = _mixed_frames(F)
+    assert jpeg.huffman_scan_batch(coef) == [jpeg.huffman_scan_reference(c) for c in coef]
+    assert jpeg.encode_coefs_batch(coef, 64, 96, 90) == [jpeg.encode_coefs(c, 64, 96, 90) for c in coef]
+    with pytest.raises(ValueError, match="huffman_scan_batch"):
+        jpeg.huffman_scan_batch(coef[:, :-1])
 
 
 # ---------------------------------------------------------------- on a card
 
 @pytest.mark.gpu
 def test_jpeg_kernels_match_plain_versions_on_gpu():
-    """J1 (I420 and RGB, 512² and odd sizes), J2 (fractions of a gap) and
-    J3 on the card, each equal to its plain version on the same inputs."""
+    """J1 (I420 and RGB, 512² and odd sizes), J2 (fractions of a gap, one
+    and batched) and J3 (one frame and batches of mixed frames) on the
+    card, each equal to its plain version on the same inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(0)
@@ -357,6 +536,23 @@ def test_jpeg_kernels_match_plain_versions_on_gpu():
         assert jpeg.launches_fdct == n + 1
         assert torch.equal(got, jpeg.fdct_quant_reference(frames, 90, fmt)), (h, w, fmt)
         assert jpeg.huffman_scan(got[1]) == jpeg.huffman_scan_reference(got[1]), (h, w, fmt)
+        n, nf = jpeg.launches_huffman, jpeg.launches_huffman_frames
+        assert jpeg.huffman_scan_batch(got) == [jpeg.huffman_scan_reference(c) for c in got], (h, w, fmt)
+        assert (jpeg.launches_huffman, jpeg.launches_huffman_frames) == (n + 1, nf + 2)
     a, b = got[0], got[1]
     for t in (0.25, 0.5, 1 / 3):
         assert torch.equal(jpeg.coef_lerp(a, b, t), jpeg.coef_lerp_reference(a, b, t)), t
+    ts = [float(t) for t in np.linspace(0, 1, 42)[1:-1]]  # more fractions than one launch takes
+    n = jpeg.launches_lerp
+    assert torch.equal(jpeg.coef_lerp_batch(a, b, ts), jpeg.coef_lerp_batch_reference(a, b, ts))
+    assert jpeg.launches_lerp == n + 1
+    for x in (a.flatten()[1:9], a.flatten()[:12]):  # misaligned; not a multiple of 8
+        with pytest.raises(ValueError, match="16-byte"):
+            jpeg.coef_lerp_batch(x, x, [0.5])
+    mixed = _mixed_frames(5).cuda()
+    assert jpeg.huffman_scan_batch(mixed) == [jpeg.huffman_scan_reference(c) for c in mixed.cpu()]
+    out, offs, plan = jpeg.huffman_scan_device(mixed)
+    out2, offs2 = jpeg._huffman_scan_replay(mixed, plan)
+    assert torch.equal(offs, offs2) and torch.equal(out[:int(offs[-1])], out2[:int(offs2[-1])])
+    with pytest.raises(ValueError, match="plan"):
+        jpeg._huffman_scan_replay(mixed, plan[:, :-1])

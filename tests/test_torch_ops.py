@@ -226,6 +226,27 @@ def test_kernel_library_builds_once_under_concurrent_first_calls(monkeypatch):
     assert len(got) == 8 and all(lib is got[0] for lib in got)
 
 
+def test_kernel_signatures_match_the_c_entries():
+    """Every ctypes signature in ops/_build.py has a C entry of that name in
+    csrc/*.cu whose parameters it passes one for one: pointers (and the
+    trailing stream) as c_void_p, int as c_int, int64_t as c_int64, float
+    as c_float; every C entry has a signature."""
+    import ctypes
+    import re
+
+    from latentblending_tpu_torch.ops import _build
+
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
+    entries = {}
+    for src in _build.CSRC_DIR.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            types = [" ".join(p.split()[:-1]) for p in params.split(",")]
+            entries[name] = ["pointer" if "*" in t else t.replace("const ", "") for t in types]
+    assert set(entries) == set(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        assert [kinds[t] for t in argtypes] == entries[name], name
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu():
     """Each CUDA kernel against its plain version on the card, at the main

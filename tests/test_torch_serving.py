@@ -121,13 +121,13 @@ def test_compute_previews_and_add(router, tmp_path, monkeypatch):
 
 
 def test_previews_are_batched(router, tmp_path, monkeypatch):
-    """N previews are ONE batched denoise and ONE J1 call for their JPEGs
-    (then J3 per file)."""
+    """N previews are ONE batched denoise, ONE J1 call and ONE J3 call for
+    their JPEGs."""
     monkeypatch.chdir(tmp_path)
     u = router.register_new_user("tiny-turbo", 128, 128)
     be = router.engines["tiny-turbo"]
     calls, j1, j3 = [], [], []
-    orig, fdct, huff = be.dh.run_diffusion_batched, jpeg.fdct_quant, jpeg.huffman_scan
+    orig, fdct, huff = be.dh.run_diffusion_batched, jpeg.fdct_quant, jpeg.huffman_scan_batch
 
     def spy(cond, lat0, **kw):
         calls.append(int(lat0.shape[0]))
@@ -135,11 +135,11 @@ def test_previews_are_batched(router, tmp_path, monkeypatch):
 
     monkeypatch.setattr(be.dh, "run_diffusion_batched", spy)
     monkeypatch.setattr(jpeg, "fdct_quant", lambda f, q, fmt="i420": j1.append((tuple(f.shape), q, fmt)) or fdct(f, q, fmt))
-    monkeypatch.setattr(jpeg, "huffman_scan", lambda c: j3.append(tuple(c.shape)) or huff(c))
+    monkeypatch.setattr(jpeg, "huffman_scan_batch", lambda c: j3.append(tuple(c.shape)) or huff(c))
     previews = router.compute_imgs(u, "a cat", "")
     assert len(previews) == 2
     assert calls == [2]
-    assert j1 == [((2, 128, 128, 3), 80, "rgb")] and len(j3) == 2
+    assert j1 == [((2, 128, 128, 3), 80, "rgb")] and j3 == [(2, jpeg.num_blocks(128, 128), 64)]
 
 
 def test_preview_jpegs_decode_to_pils_pixels(router, tmp_path, monkeypatch):
