@@ -15,8 +15,12 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    tensor-core and local-memory instruction counts of the built SASS; it
    fails unless K3 bf16 (attention_d512_bf16: wgmma and TMA over a 2-CTA
    cluster) and K2 in f32 (attention_d64_f32: 3xTF32 on TF32 wgmma) have
-   HGMMA, no HMMA and no spill loads or stores;
-3. runs each kernel at the shapes of the SDXL-Turbo 512² main path — the
+   HGMMA, no HMMA and no spill loads or stores, and unless J1's
+   fdct_quant_kernel has no local memory;
+3. holds J1 exactly against its plain version on frames made here
+   (j1_exact_cases: noise at the movie path's batches [1|4,768,512] I420
+   and [12|34,512,512,3] RGB and at odd sizes, 0, 255 and checkerboards of
+   period 1 and 8, q 1, 50, 90 and 100, one launch a call); then runs each kernel at the shapes of the SDXL-Turbo 512² main path — the
    per-level and the fused transition — and of the SDXL-base 1024² paths,
    against its plain PyTorch version on the same inputs: K1 slerp_rows at
    [2|10|12|40,64,64,4], [2|3|90,128,128,4] (bf16, [2,…] also f32), ragged
@@ -59,15 +63,17 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
 6. the movie (movie_phase) on the same engine, fused (LB_FUSED=1): one warm
    run_transition, then run_movie_transition of the README example's
    length (12 s at 30 fps) cold and warm, each with K1-K3 launched as the
-   fused transition launches them, J1 once per keyframe, J3 once per
-   keyframe (the first keyframe's call, then one call per gap coding its
+   fused transition launches them, J1 once per fetch chunk (on the
+   engine's device batch: no keyframe is read back and uploaded), J3 once
+   per keyframe (the first keyframe's call, then one call per gap coding its
    in-between frames and the next keyframe) and J2 once per gap, plus the
    quality probes of the first keyframe (a J1 and a one-frame J3 call
-   each), J3 coding every sample once (J3_frames), backend
+   each), J1 coding every keyframe once (J1_frames) and J3 every sample
+   once (J3_frames), backend
    "mjpeg+coef-lerp"; the warm movie wall beside the warm transition wall;
    the file parsed with the port's read_samples (360 samples of 512x512 at
-   30 fps, each from SOI to EOI); J1 on the first two keyframes' I420
-   planes against its plain version, batched J2 on all of gap 0's
+   30 fps, each from SOI to EOI); J1 on keyframe 0's and on the first
+   fetch chunk's I420 planes against its plain version, batched J2 on all of gap 0's
    fractions, batched J3 on gap 0 (its in-between frames and keyframe 1)
    against the plain coder on every frame and against the file's samples,
    J3 on keyframe 0 against sample 0; the kernels' times (J2 and J3 at
@@ -75,10 +81,13 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    device half) and ms a frame for keyframes and for a gap; J3 on noise
    batches (512² F=33, 1024² F=8) against per-frame calls and the plain
    coder on two frames each, with the call's peak device bytes;
-   write_movie_transition (RGB keyframes) for 2 s with the coefficient lerp
-   and with LB_COEF_LERP=0 (pixel lerp on the card, J1 and J3 per frame),
-   one frame of each: J1 (RGB) against its plain version, the sample
-   the kernels' bytes; save_tree, load_tree
+   write_movie_transition (RGB keyframes, read on the host: J1 once a
+   keyframe) for 2 s with the coefficient lerp, sample 0 the kernels'
+   bytes, and with LB_COEF_LERP=0 (pixel lerp on the card, J1 and J3 once
+   a gap), J1 (RGB) on the largest gap's batch against its plain version
+   and its samples the kernels' bytes; J1's times (device, one call,
+   plain, the bound of bytes or integer operations) at each batch;
+   save_tree, load_tree
    into a fresh engine and extend_transition([3], [4]) with exact
    launches; run_multi_transition on a 3-keyframe MovieProject, 2 s a part
    (120 samples). The movies go to a temporary directory;
@@ -227,9 +236,15 @@ def _check_wgmma_sass(counts: dict, kernel: str) -> None:
 
 
 # published H100 SXM peaks (NVIDIA's data sheet, dense): device memory rate,
-# bf16 tensor-core, TF32 tensor-core and f32 (CUDA core) operations
+# bf16 tensor-core, TF32 tensor-core and f32 (CUDA core) operations. int32:
+# C-level integer operations (each add, multiply or shift one, as _j1_ops
+# counts them) at the most an SM can issue: 4 schedulers x 32 lanes a clock
+# (the ALU pipe's IADD3/LEA/shifts beside IMAD on the FMA pipe), each
+# instruction doing at most two counted operations (IMAD a multiply and an
+# add, IADD3 two adds, LEA a shift and an add), x 132 SMs x 1.98 GHz, the
+# clock of the data sheet's 67 TFLOP/s f32 (132 x 128 x 2 x 1.98e9, an FMA two)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int32": 132 * 128 * 2 * 1.98e9}
 GRAPH_LAUNCHES = 10  # launches per captured graph when timing device time
 _SIDE: dict = {}  # the one side stream of the timing warm-ups
 
@@ -692,8 +707,9 @@ def small_input_check(torch) -> None:
         raise AssertionError(f"tiny-turbo fused vs per-level on the GPU: {lsb} LSB > 1")
 
 
-# J3 counts calls, J3_frames the frames those calls coded
-_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J2", "J3", "J3_frames")
+# J1 and J3 count calls, J1_frames and J3_frames the frames those calls coded
+_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J1_frames", "J2", "J3",
+               "J3_frames")
 
 
 def _zero_counts() -> None:
@@ -708,6 +724,7 @@ def _zero_counts() -> None:
     attention.launches_vae_bf16 = 0
     jpeg.launches_fdct = 0
     jpeg.launches_fdct_rgb = 0
+    jpeg.launches_fdct_frames = 0
     jpeg.launches_lerp = 0
     jpeg.launches_huffman = 0
     jpeg.launches_huffman_frames = 0
@@ -720,7 +737,7 @@ def _read_counts() -> dict:
     return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
             "K2_f32": attention.launches_self_f32, "K3": attention.launches_vae,
             "K3_bf16": attention.launches_vae_bf16, "J1": jpeg.launches_fdct, "J1_rgb": jpeg.launches_fdct_rgb,
-            "J2": jpeg.launches_lerp, "J3": jpeg.launches_huffman, "J3_frames": jpeg.launches_huffman_frames}
+            "J1_frames": jpeg.launches_fdct_frames, "J2": jpeg.launches_lerp, "J3": jpeg.launches_huffman, "J3_frames": jpeg.launches_huffman_frames}
 
 
 def _ceil(a: int, b: int) -> int:
@@ -894,20 +911,115 @@ def _expect_counts(counts: dict, want: dict, label: str) -> None:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
 
-def _check_jpeg_counts(counts: dict, keyframes: int, frames: int, lerp_calls: int, label: str) -> int:
-    """J1 once per keyframe (or frame, on the pixel path) plus the quality
-    probes (the first keyframe's calibrate_quality: one J1 and one J3 call
-    of one frame each); J3 one call per keyframe (or frame): the first
-    keyframe's, then one per gap for its in-between frames and the next
-    keyframe, coding every sample once; J2 `lerp_calls` calls (one per gap;
-    CoefFrames.lerp_many splits a gap above MAX_CALL_COEF_BYTES, 170 frames
-    at 512², which no movie here reaches). Returns the probes."""
-    probes = counts["J1"] - keyframes
-    want = {"J2": lerp_calls, "J3": keyframes + probes, "J3_frames": frames + probes}
-    if not 0 <= probes <= 7 or any(counts[k] != v for k, v in want.items()):
-        raise AssertionError(f"{label}: JPEG launches {counts}, expected J1 {keyframes} + p and "
-                             f"{want} with p = {probes} in 0..7")
+def _check_jpeg_counts(counts: dict, j1: int, j1_frames: int, j3: int, frames: int, lerp_calls: int,
+                       label: str) -> int:
+    """The movie writer's JPEG launches: the quality probes P of the
+    movie's first sample (calibrate_quality: one J1 and one J3 call of that
+    frame alone each, the last probe's bytes the sample), then j1 J1 calls
+    coding j1_frames frames (one a fetch chunk from the engine's device
+    batches, one a keyframe read on the host, one a gap on the pixel path)
+    and j3 J3 calls coding every other sample once (one a gap, and a later
+    part's first keyframe), and lerp_calls J2 calls (one a gap;
+    CoefFrames.lerp_many and the pixel path split a gap above
+    MAX_CALL_COEF_BYTES, 170 frames at 512², which no movie here reaches).
+    Returns P."""
+    probes = counts["J3"] - j3
+    want = {"J1": j1 + probes, "J1_frames": j1_frames + probes, "J2": lerp_calls, "J3_frames": frames - 1 + probes}
+    if not 1 <= probes <= 8 or any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: JPEG launches {counts}, expected J3 {j3} + P and {want} with P = {probes} "
+                             f"in 1..8")
     return probes
+
+
+def _fetch_chunks(n_kf: int) -> int:
+    """The engine's fetch chunks for n_kf keyframes of one fused transition."""
+    return _ceil(n_kf, int(os.environ.get("LB_FETCH_CHUNK", "4")))
+
+
+def _j1_ops(B: int, h: int, w: int, rgb: bool) -> int:
+    """libjpeg's integer operations (each add, subtract, multiply, shift,
+    compare or divide one) for B frames: a block's DCT rows (58 each) and
+    columns (60 each), level shift (64) and quantize (5 a coefficient: abs,
+    rounding add, divide, compare, sign), for the blocks libjpeg transforms
+    (not the dummy ones); from RGB also rgb_ycc_convert (7 a component of a
+    pixel) and h2v2_downsample (5 a chroma sample)."""
+    my, mx = _ceil(h, 16), _ceil(w, 16)
+    ops = (_ceil(h, 8) * _ceil(w, 8) + 2 * my * mx) * (8 * 58 + 8 * 60 + 64 + 64 * 5)
+    if rgb:
+        ops += h * w * 3 * 7 + 2 * (8 * my) * (8 * mx) * 5
+    return B * ops
+
+
+def _j1_case(torch, frames, quality: int, fmt: str, label: str) -> dict:
+    """J1 on `frames` against its plain version (exactly, one launch coding
+    every frame), then timed: device time (CUDA-graph replay), one call
+    (CUDA events), the plain version (CUDA events), the bound (the larger
+    of the bytes read and written over the memory rate and libjpeg's
+    integer operations over PEAK_FLOPS["int32"]) and its share."""
+    from latentblending_tpu_torch.video import jpeg
+
+    B = frames.shape[0]
+    n, nf = jpeg.launches_fdct, jpeg.launches_fdct_frames
+    coef = jpeg.fdct_quant(frames, quality, fmt)
+    if (jpeg.launches_fdct, jpeg.launches_fdct_frames) != (n + 1, nf + B):
+        raise AssertionError(f"J1 ({label}): {jpeg.launches_fdct - n} calls of {jpeg.launches_fdct_frames - nf} "
+                             f"frames, expected 1 of {B}")
+    err = _jpeg_exact(torch, f"J1 ({label})", coef, jpeg.fdct_quant_reference(frames, quality, fmt))
+    h, w = (frames.shape[1] * 2 // 3, frames.shape[2]) if fmt == "i420" else tuple(frames.shape[1:3])
+    case = {"shape": f"[{','.join(map(str, frames.shape))}] uint8 {fmt.upper()} -> [{B},{coef.shape[1]},64] int16 "
+                     f"({label})", "max_abs_err": err,
+            **_bound(frames.numel() + coef.numel() * 2, _j1_ops(B, h, w, fmt == "rgb"), "int32")}
+    case["ms"] = _device_ms(torch, lambda: jpeg.fdct_quant(frames, quality, fmt))
+    case["call_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant(frames, quality, fmt))
+    case["plain_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant_reference(frames, quality, fmt), reps=5)
+    case.update(library_ms=None, bound_us=case["bound_ms"] * 1e3, share_of_bound=case["bound_ms"] / case["ms"])
+    print(f"J1 {case['shape']}: equal to its plain version; device {case['ms']:.5f} ms (CUDA-graph replay), one call "
+          f"{case['call_ms']:.5f} ms, plain {case['plain_ms']:.5f} ms, bound {case['bound_us']:.3f} us "
+          f"({case['bound_by']}: {case['bytes']} bytes, {case['flops']} integer operations), share "
+          f"{case['share_of_bound']:.2%}", flush=True)
+    return case
+
+
+def _checkerboard(torch, shape: tuple, fmt: str, period: int, device: str):
+    """0/255 checkerboard frames of `period` (all 0 or all 255 for period 0 / -1)."""
+    if period <= 0:
+        return torch.full(shape, 0 if period == 0 else 255, dtype=torch.uint8, device=device)
+    yy = torch.arange(shape[1], device=device).reshape(-1, 1) // period
+    xx = torch.arange(shape[2], device=device).reshape(1, -1) // period
+    board = (((yy + xx) % 2) * 255).to(torch.uint8)
+    board = board[..., None] if fmt == "rgb" else board
+    return board.expand(shape).contiguous()
+
+
+def j1_exact_cases(torch, device: str = "cuda") -> None:
+    """J1 exactly against its plain version on frames made here, before the
+    engine (a wrong J1 fails in seconds): noise at the movie path's batches
+    ([1|4,768,512] I420: a keyframe and a fetch chunk; [12|34,512,512,3]
+    RGB: write_imgs_transition's keyframes and a pixel gap) and at an odd
+    size (I420 516x772, RGB 50x70); all-0, all-255 and 0/255 checkerboards
+    of period 1 and 8 (the worst cases of the transform's odd terms) at
+    512², 36x34 (I420) and 13x21 (RGB); each at q 1, 50, 90 and 100, one
+    launch coding every frame."""
+    from latentblending_tpu_torch.video import jpeg
+
+    g = torch.Generator(device=device).manual_seed(14)
+    cases = [((shape, fmt), torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.uint8))
+             for shape, fmt in [((1, 768, 512), "i420"), ((4, 768, 512), "i420"), ((12, 512, 512, 3), "rgb"),
+                                ((34, 512, 512, 3), "rgb"), ((2, 774, 772), "i420"), ((2, 50, 70, 3), "rgb")]]
+    for period in (0, -1, 1, 8):
+        for shape, fmt in [((2, 768, 512), "i420"), ((2, 512, 512, 3), "rgb"), ((2, 54, 34), "i420"),
+                           ((2, 13, 21, 3), "rgb")]:
+            cases.append(((shape, fmt), _checkerboard(torch, shape, fmt, period, device)))
+    for (shape, fmt), frames in cases:
+        for q in (1, 50, 90, 100):
+            n, nf = jpeg.launches_fdct, jpeg.launches_fdct_frames
+            got = jpeg.fdct_quant(frames, q, fmt)
+            if (jpeg.launches_fdct, jpeg.launches_fdct_frames) != (n + 1, nf + shape[0]):
+                raise AssertionError(f"J1 {shape} {fmt}: not one launch of {shape[0]} frames")
+            _jpeg_exact(torch, f"J1 {list(shape)} {fmt} q{q}", got, jpeg.fdct_quant_reference(frames, q, fmt))
+    print(f"J1 against its plain version, exactly, on {len(cases)} inputs x 4 qualities (noise at "
+          f"[1|4,768,512] I420, [12|34,512,512,3] RGB, I420 516x772, RGB 50x70; 0, 255 and checkerboards of "
+          f"period 1 and 8 at 512², I420 36x34, RGB 13x21): all equal, one launch a call", flush=True)
 
 
 def _jpeg_exact(torch, label: str, got, want) -> int:
@@ -949,8 +1061,9 @@ def _j3_times(torch, coef, plain_s: float) -> dict:
 
 
 def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> dict:
-    """J1-J3 on the movie's first gap: J1 on its two keyframes (the I420
-    planes the engine shipped) against its plain version; batched J2 on all
+    """J1-J3 on the movie's first gap: J1 on its first keyframe and on its
+    first fetch chunk (the I420 planes the engine codes) against its plain
+    version, timed (_j1_case); batched J2 on all
     the gap's fractions against its plain version; batched J3 on the gap's
     in-between frames and keyframe 1, as the writer codes them, against the
     plain coder on every frame and against the file's samples; J3 on
@@ -965,9 +1078,11 @@ def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> 
     from latentblending_tpu_torch.video import jpeg
 
     H, W = be.dh.height_img, be.dh.width_img
-    planes = be.dh.to_i420_device(torch.stack(be._imgs_dev[:2])).contiguous()
-    coef = jpeg.fdct_quant(planes, quality)
-    j1_err = _jpeg_exact(torch, "J1 (I420)", coef, jpeg.fdct_quant_reference(planes, quality))
+    chunk = int(os.environ.get("LB_FETCH_CHUNK", "4"))
+    planes = be.dh.to_i420_device(torch.stack(be._imgs_dev[:chunk])).contiguous()
+    j1 = [_j1_case(torch, planes[:1], quality, "i420", "keyframe 0"),
+          _j1_case(torch, planes, quality, "i420", "the first fetch chunk")]
+    coef = jpeg.fdct_quant(planes[:2], quality)
     gap = frame_insert_counts(len(be._imgs_dev), target)[0]
     fracts = [float(f) for f in np.linspace(0, 1, gap + 2)[1:]]  # the writer's: t = 1 is keyframe 1
     batch = jpeg.coef_lerp_batch(coef[0], coef[1], fracts)  # samples 1 .. gap + 1, as the writer codes them
@@ -990,18 +1105,13 @@ def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> 
     plain_one_s = time.perf_counter() - t0
     if jpeg.huffman_scan_batch(one) != [want0] or samples[0] != header + want0 + jpeg.EOI:
         raise AssertionError("J3: keyframe 0 differs from the plain coder's or from sample 0")
-    print(f"movie kernels vs plain: J1 on 2 keyframes [2,{H * 3 // 2},{W}] q{quality}; J2 batched on gap 0's "
+    print(f"movie kernels vs plain: J1 on keyframe 0 and on the first fetch chunk [{chunk},{H * 3 // 2},{W}] "
+          f"q{quality}; J2 batched on gap 0's "
           f"{gap + 1} fractions (t = 1 equal to keyframe 1); J3 batched on gap 0 ([{gap + 1},{coef.shape[1]},64]: {gap} in-between frames and "
           f"keyframe 1) against the plain coder on all {gap + 1} frames and the file's samples 1..{gap + 1}; J3 on "
           f"keyframe 0 against sample 0: all equal", flush=True)
 
     coef_bytes = coef[0].numel() * 2
-    j1 = {"shape": f"[1,{H * 3 // 2},{W}] uint8 I420 -> [{coef.shape[1]},64] int16", "max_abs_err": j1_err,
-          **_bound(planes[0].numel() + coef_bytes, 0, "bf16")}
-    j1["call_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant(planes[:1], quality))
-    j1["ms"] = _device_ms(torch, lambda: jpeg.fdct_quant(planes[:1], quality))
-    j1["plain_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant_reference(planes[:1], quality))
-    j1.update(library_ms=None, bound_us=j1["bound_ms"] * 1e3, share_of_bound=j1["bound_ms"] / j1["ms"])
     j2 = {}
     for F in (gap + 1, 1):
         ts = fracts[:F]
@@ -1029,14 +1139,13 @@ def _jpeg_kernel_checks(torch, be, samples: list, quality: int, target: int) -> 
                                                                                   H, W, quality)),
                  f"gap of {gap} + keyframe (J2+J3, lerp_many), a frame":
                      _median_ms(torch, lambda: pair.lerp_many(fracts), reps=10) / (gap + 1)}
-    for name, case in [("J1", j1)] + [(f"J2 F={F}", c) for F, c in j2.items()] + \
-            [(f"J3 F={F}", c) for F, c in j3.items()]:
+    for name, case in [(f"J2 F={F}", c) for F, c in j2.items()] + [(f"J3 F={F}", c) for F, c in j3.items()]:
         print(f"{name} {case['shape']}: device {case['ms']:.5f} ms (CUDA-graph replay), one call "
               f"{case['call_ms']:.5f} ms" + (f" ({case['ms_a_frame']:.5f} a frame)" if "ms_a_frame" in case else "")
               + f", plain {case['plain_ms']:.5f} ms, bound {case['bound_us']:.3f} us ({case['bound_by']}), share "
               f"{case['share_of_bound']:.2%}", flush=True)
     print(f"movie ms a frame at {H}x{W} (CUDA events, host reads included): {json.dumps(per_frame)}", flush=True)
-    return {"J1": [j1], "J2": [j2[gap + 1], j2[1]], "J3": [j3[gap + 1], j3[1]]}
+    return {"J1": j1, "J2": [j2[gap + 1], j2[1]], "J3": [j3[gap + 1], j3[1]]}
 
 
 def _j3_stress(torch, cases=(((512, 512), 33), ((1024, 1024), 8))) -> None:
@@ -1084,7 +1193,7 @@ def movie_phase(torch, be) -> dict:
     from latentblending_tpu_torch.engine.tree_cache import load_tree, save_tree
     from latentblending_tpu_torch.ops.schedules import frame_insert_counts
     from latentblending_tpu_torch.video import jpeg
-    from latentblending_tpu_torch.video.frames import stream_frames_lazy_device
+    from latentblending_tpu_torch.video.frames import stream_gaps_device
 
     H, W = be.dh.height_img, be.dh.width_img
     k2 = K2_PER_EVAL[H]
@@ -1108,10 +1217,11 @@ def movie_phase(torch, be) -> dict:
             walls.append(time.perf_counter() - t0)
             c = _read_counts()
             # K1-K3 as the fused transition launches them; J1-J3 as the movie needs
-            _check_transition(be, imgs, {**c, "J1": 0, "J1_rgb": 0, "J2": 0, "J3": 0, "J3_frames": 0}, "fused", k2,
+            _check_transition(be, imgs, {**c, **{k: 0 for k in _COUNT_KEYS if k[0] == "J"}}, "fused", k2,
                               f"movie ({run})")
             n_kf = len(be.tree_final_imgs)
-            probes = _check_jpeg_counts(c, n_kf, target, n_kf - 1, f"movie ({run})")
+            # J1 once a fetch chunk, on the engine's device batch (no upload)
+            probes = _check_jpeg_counts(c, _fetch_chunks(n_kf), n_kf, n_kf - 1, target, n_kf - 1, f"movie ({run})")
             if run == "cold":
                 counts["movie (run_movie_transition)"] = c
         if be.last_writer_backend != "mjpeg+coef-lerp":
@@ -1145,25 +1255,39 @@ def movie_phase(torch, be) -> dict:
             wall = time.perf_counter() - t0
             c = counts[label] = _read_counts()
             pixel = coef_lerp == "0"
-            _check_jpeg_counts(c, rgb_target if pixel else n_kf, rgb_target, 0 if pixel else n_kf - 1, label)
+            ins = frame_insert_counts(n_kf, rgb_target)
+            if pixel:  # J1 and J3 once a gap: its in-between frames and the next keyframe
+                _check_jpeg_counts(c, n_kf - 1, rgb_target - 1, n_kf - 1, rgb_target, 0, label)
+            else:  # the keyframes are on the host: J1 once a keyframe after keyframe 0's probes
+                _check_jpeg_counts(c, n_kf - 1, n_kf - 1, n_kf - 1, rgb_target, n_kf - 1, label)
             if c["J1_rgb"] != c["J1"]:
                 raise AssertionError(f"{label}: every J1 launch should take the RGB route, got {c}")
             s2 = _movie_samples(fp2, rgb_target, (H, W), MOVIE_FPS, label)
             q2 = be.last_jpeg_quality
-            idx = 1 if pixel else 0
-            frame = torch.from_numpy(be.tree_final_imgs[0]).to(be.dh.device)
-            if pixel:  # the first in-between frame, lerped on the card as the writer lerps it
-                ins = frame_insert_counts(n_kf, rgb_target)[0]
-                frame = list(stream_frames_lazy_device(be.tree_final_imgs[:2], ins + 2, lambda im: im,
-                                                       be.dh.device))[1]
-            got = jpeg.fdct_quant(frame[None].contiguous(), q2, "rgb")
-            want = jpeg.fdct_quant_reference(frame[None].contiguous(), q2, "rgb")
-            _jpeg_exact(torch, f"{label}: J1 (RGB)", got, want)
-            # J3 against its plain coder ran on the movie's frames (4 at most at 512²: it is slow)
-            if s2[idx] != jpeg.jfif_header(H, W, q2) + jpeg.huffman_scan(got[0]) + jpeg.EOI:
-                raise AssertionError(f"{label}: sample {idx} is not the kernels' bytes for its frame")
+            header = jpeg.jfif_header(H, W, q2)
+            if pixel:
+                # the largest gap's batch, lerped on the card as the writer lerps it, against the plain J1 and
+                # the file's samples
+                g = max(range(n_kf - 1), key=lambda i: ins[i])
+                gap = list(stream_gaps_device(be.tree_final_imgs[g:g + 2], ins[g] + 2, lambda im: im,
+                                              be.dh.device, ins[g] + 1))[1].contiguous()
+                kres_pixel = _j1_case(torch, gap, q2, "rgb", f"the pixel movie's largest gap, {g}")
+                got = jpeg.fdct_quant(gap, q2, "rgb")
+                idx = 1 + sum(ins[i] + 1 for i in range(g))
+                if s2[idx:idx + len(gap)] != [header + x + jpeg.EOI for x in jpeg.huffman_scan_batch(got)]:
+                    raise AssertionError(f"{label}: samples {idx}..{idx + len(gap) - 1} are not the kernels' bytes "
+                                         f"for gap {g}")
+                what = f"samples {idx}..{idx + len(gap) - 1} (gap {g}, {len(gap)} frames)"
+            else:
+                frame = torch.from_numpy(be.tree_final_imgs[0]).to(be.dh.device)[None].contiguous()
+                got = jpeg.fdct_quant(frame, q2, "rgb")
+                _jpeg_exact(torch, f"{label}: J1 (RGB)", got, jpeg.fdct_quant_reference(frame, q2, "rgb"))
+                # J3 against its plain coder ran on the movie's frames (4 at most at 512²: it is slow)
+                if s2[0] != header + jpeg.huffman_scan(got[0]) + jpeg.EOI:
+                    raise AssertionError(f"{label}: sample 0 is not the kernels' bytes for its frame")
+                what = "sample 0"
             print(f"{label}: {len(s2)} samples in {wall:.4f} s, backend {be.last_writer_backend}, quality {q2}, "
-                  f"sample {idx}: J1 (RGB) equals its plain version and the file the kernels' bytes; "
+                  f"{what}: J1 (RGB) equals its plain version and the file the kernels' bytes; "
                   f"launches {json.dumps(c)}", flush=True)
 
         # the tree cache: save, load into a fresh engine, one more level
@@ -1209,14 +1333,18 @@ def movie_phase(torch, be) -> dict:
         wall = time.perf_counter() - t0
         c = counts["run_multi_transition"] = _read_counts()
         s4 = _movie_samples(fp4, 2 * 2 * MOVIE_FPS, (H, W), MOVIE_FPS, "run_multi_transition")
-        n_kf = 2 * len(be.tree_final_imgs)  # each part writes its two edges
-        _check_jpeg_counts(c, n_kf, len(s4), n_kf - 2, "run_multi_transition")
+        n_kf = len(be.tree_final_imgs)
+        # each part's keyframes from its device batches, a fetch chunk a J1 call; the second part's
+        # first keyframe is coded alone by J3 (the quality settled in the first part)
+        _check_jpeg_counts(c, 2 * _fetch_chunks(n_kf), 2 * n_kf, 2 * (n_kf - 1) + 1, len(s4), 2 * (n_kf - 1),
+                           "run_multi_transition")
         if be.last_writer_backend != "mjpeg+coef-lerp":
             raise AssertionError(f"run_multi_transition: backend {be.last_writer_backend}")
         print(f"run_multi_transition: 3 keyframes, 2 parts of {2 * MOVIE_FPS} frames -> {len(s4)} samples in "
               f"{wall:.4f} s, backend {be.last_writer_backend}, launches {json.dumps(c)}", flush=True)
     if old_coef is not None:
         os.environ["LB_COEF_LERP"] = old_coef
+    kres["J1_rgb"] = [kres_pixel]
     return {"counts": counts, "kres": kres}
 
 
@@ -1462,7 +1590,7 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
         c = counts["write_imgs_transition"] = _read_counts()
         n_kf = len(be.tree_final_imgs)
         want_c = dict.fromkeys(_COUNT_KEYS, 0)
-        want_c.update({"J1": 1, "J1_rgb": 1, "J3": 1, "J3_frames": n_kf})
+        want_c.update({"J1": 1, "J1_rgb": 1, "J1_frames": n_kf, "J3": 1, "J3_frames": n_kf})
         _expect_counts(c, want_c, "write_imgs_transition")
         names = sorted(os.listdir(tmp))
         if names != sorted([f"lowres_img_{i:04d}.jpg" for i in range(n_kf)] + ["lowres.yaml"]):
@@ -1480,17 +1608,7 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
               f"launches {json.dumps(c)} (as expected)", flush=True)
     # J1's RGB route at the batch write_imgs_transition gives it: all the
     # keyframes in one call
-    coef = jpeg.fdct_quant(frames, 75, "rgb")
-    err = _jpeg_exact(torch, f"J1 (RGB) on the {n_kf} keyframes", coef, jpeg.fdct_quant_reference(frames, 75, "rgb"))
-    j1 = {"shape": f"[{n_kf},{H},{W},3] uint8 RGB -> [{n_kf},{coef.shape[1]},64] int16", "max_abs_err": err,
-          **_bound(frames.numel() + coef.numel() * 2, 0, "bf16")}
-    j1["call_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant(frames, 75, "rgb"))
-    j1["ms"] = _device_ms(torch, lambda: jpeg.fdct_quant(frames, 75, "rgb"))
-    j1["plain_ms"] = _median_ms(torch, lambda: jpeg.fdct_quant_reference(frames, 75, "rgb"))
-    j1.update(library_ms=None, bound_us=j1["bound_ms"] * 1e3, share_of_bound=j1["bound_ms"] / j1["ms"])
-    print(f"J1 (RGB) {j1['shape']}: equal to its plain version; device {j1['ms']:.5f} ms, one call "
-          f"{j1['call_ms']:.5f} ms, plain {j1['plain_ms']:.5f} ms, bound {j1['bound_us']:.3f} us ({j1['bound_by']}), "
-          f"share {j1['share_of_bound']:.1%}", flush=True)
+    j1 = _j1_case(torch, frames.contiguous(), 75, "rgb", f"write_imgs_transition's {n_kf} keyframes")
 
     # ---- 3. the single-branch loop, beside one per-level round of as many stems
     idx, stems = int(be.list_idx_injection[0]), 3
@@ -1575,7 +1693,8 @@ def reference_api_phase(torch, be_main, nlpd_walls: dict) -> dict:
             k_want = _expected_launches(app, "fused", k2)
             kk = [k for k in _COUNT_KEYS if k[0] == "K"]
             _expect_counts({k: c[k] for k in kk}, {k: k_want[k] for k in kk}, "example_single_trans (K1-K3)")
-            _check_jpeg_counts(c, n_kf, 2 * MOVIE_FPS, n_kf - 1, "example_single_trans")
+            # run_transition resolved the keyframes: J1 once a keyframe read on the host
+            _check_jpeg_counts(c, n_kf - 1, n_kf - 1, n_kf - 1, 2 * MOVIE_FPS, n_kf - 1, "example_single_trans")
             samples = _movie_samples(out, 2 * MOVIE_FPS, (H, W), MOVIE_FPS, "example_single_trans")
             print(f"example_single_trans --snapshot (from_pretrained, run_transition, write_movie_transition 2 s): "
                   f"{len(samples)} samples in {app_s:.3f} s, {n_kf} keyframes, launches {json.dumps(c)}", flush=True)
@@ -1715,7 +1834,8 @@ def serving_phase(torch, be) -> dict:
         # ---- previews, counted, cold and warm
         want_prev = dict.fromkeys(_COUNT_KEYS, 0)
         want_prev.update({"K1_rows": N, "K2": N * k2, "K3": _ceil(SERVING_PREVIEWS, dh.decode_chunk),
-                          "J1": 1, "J1_rgb": 1, "J3": 1, "J3_frames": SERVING_PREVIEWS})
+                          "J1": 1, "J1_rgb": 1, "J1_frames": SERVING_PREVIEWS, "J3": 1,
+                          "J3_frames": SERVING_PREVIEWS})
         prev_walls, decode_ms = [], []
         for run in ("cold", "warm"):
             _zero_counts()
@@ -1755,7 +1875,8 @@ def serving_phase(torch, be) -> dict:
                 kk = [k for k in _COUNT_KEYS if k[0] == "K"]
                 _expect_counts({k: c[k] for k in kk}, {k: k_want[k] for k in kk}, f"serving /movie ({run}, K1-K3)")
                 n_kf = len(be.tree_final_imgs)
-                probes = _check_jpeg_counts(c, n_kf, target, n_kf - 1, f"serving /movie ({run})")
+                probes = _check_jpeg_counts(c, _fetch_chunks(n_kf), n_kf, n_kf - 1, target, n_kf - 1,
+                                            f"serving /movie ({run})")
         status, mp4, ctype = _http(base, r["movie_url"])
         if status != 200 or ctype != "video/mp4" or r["json_url"] is None:
             raise AssertionError(f"serving: movie {status} {ctype}, project {r['json_url']}")
@@ -2215,7 +2336,12 @@ def main() -> int:
     sass = _print_sass_counts(lib)
     for kernel in ("attention_d512_bf16", "attention_d64_f32"):
         _check_wgmma_sass(sass, kernel)
+    fdct = {name: c for name, c in sass.items() if "fdct_quant_kernel" in name}
+    if not fdct or any(c["local"] for c in fdct.values()):
+        raise AssertionError(f"sass: J1's fdct_quant_kernel should use no local memory, got {fdct}")
+    print("sass fdct_quant_kernel: no local memory", flush=True)
 
+    j1_exact_cases(torch)
     kres = kernel_phases(torch)
     small_input_check(torch)
 
@@ -2235,7 +2361,8 @@ def main() -> int:
     kres.update(movie["kres"])
     ref = reference_api_phase(torch, be, nlpd_walls)
     counts.update(ref["counts"])
-    kres.update(ref["kres"])
+    for k, cases in ref["kres"].items():  # the reference phase's J1 RGB row first, the movie's after it
+        kres[k] = cases + kres.get(k, [])
     counts.update(serving_phase(torch, be))
     be.tree_latents, be._imgs_dev, be.tree_final_imgs = [None, None], [], []
     torch.cuda.empty_cache()

@@ -7,18 +7,28 @@
 // native/jpeg_coef_lerp.cpp; mjpeg_mp4.py's cv2.imencode). Their output is
 // libjpeg's, bit for bit:
 //
-//   J1 fdct_quant: one CTA per 16x16 MCU of a frame, 384 threads (6 blocks
-//      of 64 samples: Y00 Y01 Y10 Y11 Cb Cr). Samples are read with libjpeg's
-//      edge expansion (the last row or column again; a chroma row past the
-//      downsampled height is the last one again); from RGB, each sample is
-//      converted first with jccolor.c's fixed-point rgb_ycc_convert and, for
-//      chroma, jcsample.c's h2v2_downsample (bias 1, 2, 1, 2, ...). Then
-//      jfdctint.c's jpeg_fdct_islow (rows, then columns; 64-bit products, as
-//      libjpeg's JLONG on this platform: an odd-part sum such as
-//      tmp4 + z1 + z3 can pass 2^31 in the column pass) and jcdctmgr.c's
-//      quantize, (|x| + 4q) / 8q with the sign put back. Dummy Y blocks past
-//      the image's blocks get AC 0 and the DC of the block before them
-//      (jccoefct.c). Output int16 [B, nblocks, 64], zigzag order.
+//   J1 fdct_quant: a CTA codes a strip of kStripMcus 16x16 MCUs of one MCU
+//      row of one frame (grid: strips x frames, so one launch codes a batch).
+//      A thread owns one 8-sample row of one 8x8 block, a warp four blocks:
+//      the strip's four Y blocks of an MCU a warp, then Cb Cr Cb Cr of two
+//      MCUs a warp. A row comes in with one 8-byte load where it is aligned
+//      and inside the frame (24 bytes from RGB); libjpeg's edge expansion (the
+//      last row or column again; a chroma row past the downsampled height is
+//      the last one again) only at the right and bottom edges. From RGB, each
+//      pixel is converted once, by the thread of its Y row, with jccolor.c's
+//      fixed-point rgb_ycc_convert; its Cb and Cr go to a shared tile of the
+//      strip, from which the chroma rows take jcsample.c's h2v2_downsample
+//      (bias 1, 2, 1, 2, ...). Then jfdctint.c's jpeg_fdct_islow: the row pass
+//      in registers, an 8x8 transpose through a padded shared tile of the
+//      warp (__syncwarp only), the column pass, all in 32-bit integers (every
+//      intermediate stays below 2^29 for samples in [-128, 127]:
+//      tests/test_torch_jpeg.py bounds each one). jcdctmgr.c's quantize,
+//      (|x| + 4q) / 8q with the sign put back, is an exact multiply-high by a
+//      per-position reciprocal ceil(2^32 / 8q) (exact for numerators below
+//      2^16; |x| + 4q < 9300). Dummy Y blocks past the image's blocks get AC 0
+//      and the DC of the nearest earlier real block of their MCU (jccoefct.c),
+//      taken by a shuffle. The block is staged in zigzag order in shared
+//      memory and written as 16-byte stores: int16 [B, nblocks, 64].
 //   J2 coef_lerp: round half away from zero of fmaf(1-t, a, t*b) per
 //      coefficient for F fractions a call: native/jpeg_coef_lerp.cpp:142-157
 //      as g++ -O3 -march=native builds it (the two products contracted into
@@ -52,129 +62,209 @@
 //      memory, the length read on the card: one host read of the plan, one
 //      wait for the copy.
 //
-// What bounds them on the H100: at 512x512 a frame is 0.39 MB of I420 in and
-// 0.79 MB of coefficients out (J1); J2 reads 1.6 MB and writes 0.79 MB a
-// fraction; J3 reads 0.79 MB a frame and writes ~0.1-0.4 MB of scan. A
-// frame's work is microseconds of memory time: one J3 call costs eight
-// launches, a scan of its blocks on one CTA a frame and two waits of the
-// host, so J3 is bound by latency unless a call codes many frames, which is
-// why the movie writer codes a whole gap a call.
+// What bounds them on the H100: at 512x512 J1 reads 0.39 MB of I420 (0.79 MB
+// of RGB) and writes 0.79 MB of coefficients a frame, and does libjpeg's 8.2 M
+// integer operations (14.3 M from RGB), which take longer on the INT32 units
+// than the bytes take on the memory: its bound is operations, and it needs
+// many frames a launch to come near it, so the movie writer codes a fetch
+// chunk's keyframes, or a pixel gap's frames, a call. J2 reads 1.6 MB and
+// writes 0.79 MB a fraction; J3 reads 0.79 MB a frame and writes ~0.1-0.4 MB
+// of scan. A frame's work is microseconds of memory time: one J3 call costs
+// eight launches, a scan of its blocks on one CTA a frame and two waits of
+// the host, so J3 is bound by latency unless a call codes many frames, which
+// is why the movie writer codes a whole gap a call.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-// zigzag position of each natural (row-major) coefficient index
-__constant__ int kZigzagPos[64] = {
-    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42, 3,  8,  12, 17, 25, 30,
-    41, 43, 9,  11, 18, 24, 31, 40, 44, 53, 10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38,
-    46, 51, 55, 60, 21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+// ---------------------------------------------------------------- J1
 
-constexpr int kStuffChunk = 64;  // bytes per thread of the stuffing pass (video/jpeg.py _STUFF_CHUNK)
+constexpr int kStripMcus = 8;                      // MCUs a CTA of J1 codes, in one MCU row
+constexpr int kFdctWarps = kStripMcus * 3 / 2;     // a Y warp an MCU, a chroma warp two MCUs
+constexpr int kTileStride = kStripMcus * 16 + 16;  // bytes a row of the RGB route's Cb/Cr tile takes (padded)
+constexpr int kChromaTable = 72;                   // the chroma entries' offset in the shared table (padded)
 
-__device__ __forceinline__ int ycc_y(const uint8_t* p) {
-  return (19595 * p[0] + 38470 * p[1] + 7471 * p[2] + 32768) >> 16;
+// libjpeg's rgb_ycc_convert (FIX(x) = round(x * 2^16); CBCR_OFFSET + ONE_HALF - 1 on Cb and Cr)
+__device__ __forceinline__ int ycc_y(int r, int g, int b) { return (19595 * r + 38470 * g + 7471 * b + 32768) >> 16; }
+__device__ __forceinline__ int ycc_cb(int r, int g, int b) {
+  return (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16;
 }
-__device__ __forceinline__ int ycc_c(const uint8_t* p, int comp) {
-  // Cb (comp 0) or Cr (comp 1); FIX(0.5)*i + CBCR_OFFSET + ONE_HALF - 1 on the B or R term
-  const int off = (128 << 16) + 32767;
-  return comp == 0 ? (-11059 * p[0] - 21709 * p[1] + 32768 * p[2] + off) >> 16
-                   : (32768 * p[0] - 27439 * p[1] - 5329 * p[2] + off) >> 16;
+__device__ __forceinline__ int ycc_cr(int r, int g, int b) {
+  return (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16;
 }
 
-__device__ __forceinline__ long long descale(long long x, int n) { return (x + (1LL << (n - 1))) >> n; }
+__device__ __forceinline__ int byte_of(unsigned w, int i) { return (w >> (8 * i)) & 0xFF; }
 
-// one pass of jpeg_fdct_islow over 8 values d[0], d[stride], ... in place
-template <bool kFirst>
-__device__ void fdct_pass(int* d, int stride) {
-  constexpr int kConst = 13, kPass1 = 2;
-  constexpr int kOdd = kFirst ? kConst - kPass1 : kConst + kPass1;
-  long long s[8];
+// the 8 samples of a row from x0 on (a plane of width W): one 8-byte load
+// where it is aligned and inside the row, else each sample with the last
+// column again past the edge
+__device__ __forceinline__ void load_row(const uint8_t* __restrict__ row, int x0, int W, int (&s)[8]) {
+  if (x0 + 8 <= W && ((uintptr_t)(row + x0) & 7) == 0) {
+    const uint2 v = *reinterpret_cast<const uint2*>(row + x0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = d[i * stride];
-  long long tmp0 = s[0] + s[7], tmp7 = s[0] - s[7];
-  long long tmp1 = s[1] + s[6], tmp6 = s[1] - s[6];
-  long long tmp2 = s[2] + s[5], tmp5 = s[2] - s[5];
-  long long tmp3 = s[3] + s[4], tmp4 = s[3] - s[4];
-  long long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  long long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  if (kFirst) {
-    d[0] = (int)((tmp10 + tmp11) << kPass1);
-    d[4 * stride] = (int)((tmp10 - tmp11) << kPass1);
+    for (int k = 0; k < 8; ++k) s[k] = byte_of(k < 4 ? v.x : v.y, k & 3);
   } else {
-    d[0] = (int)descale(tmp10 + tmp11, kPass1);
-    d[4 * stride] = (int)descale(tmp10 - tmp11, kPass1);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] = row[min(x0 + k, W - 1)];
   }
-  long long z1 = (tmp12 + tmp13) * 4433;
-  d[2 * stride] = (int)descale(z1 + tmp13 * 6270, kOdd);
-  d[6 * stride] = (int)descale(z1 + tmp12 * -15137, kOdd);
-  z1 = tmp4 + tmp7;
-  long long z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
-  long long z5 = (z3 + z4) * 9633;
-  tmp4 *= 2446;
-  tmp5 *= 16819;
-  tmp6 *= 25172;
-  tmp7 *= 12299;
-  z1 *= -7373;
-  z2 *= -20995;
-  z3 = z3 * -16069 + z5;
-  z4 = z4 * -3196 + z5;
-  d[7 * stride] = (int)descale(tmp4 + z1 + z3, kOdd);
-  d[5 * stride] = (int)descale(tmp5 + z2 + z4, kOdd);
-  d[3 * stride] = (int)descale(tmp6 + z2 + z3, kOdd);
-  d[1 * stride] = (int)descale(tmp7 + z1 + z4, kOdd);
 }
 
-__global__ void __launch_bounds__(384) fdct_quant_kernel(const uint8_t* __restrict__ frames,
-                                                         const int* __restrict__ quant, int16_t* __restrict__ out,
-                                                         int H, int W, int rgb) {
-  __shared__ int s[6][64];
-  __shared__ int qs[6][64];
-  const int t = threadIdx.x, blk = t >> 6, pos = t & 63, r = pos >> 3, c = pos & 7;
-  const int mx = (W + 15) >> 4, mcu = blockIdx.x, mr = mcu / mx, mc = mcu % mx;
-  const long long frame_bytes = rgb ? 3LL * H * W : (long long)H * W * 3 / 2;
-  const uint8_t* f = frames + blockIdx.y * frame_bytes;
-
-  int v;
-  if (blk < 4) {
-    const int y = min(mr * 16 + (blk >> 1) * 8 + r, H - 1), x = min(mc * 16 + (blk & 1) * 8 + c, W - 1);
-    v = rgb ? ycc_y(f + 3LL * ((long long)y * W + x)) : f[(long long)y * W + x];
+// 8 RGB pixels of a row from x0 on, converted: Y into s, Cb and Cr packed
+// into 8 bytes each
+__device__ __forceinline__ void load_rgb_row(const uint8_t* __restrict__ row, int x0, int W, int (&s)[8],
+                                             uint2* cb, uint2* cr) {
+  int px[24];
+  if (x0 + 8 <= W && ((uintptr_t)(row + 3 * x0) & 7) == 0) {
+    const uint2* v = reinterpret_cast<const uint2*>(row + 3 * x0);
+    const uint2 a = v[0], b = v[1], c = v[2];
+    const unsigned w[6] = {a.x, a.y, b.x, b.y, c.x, c.y};
+#pragma unroll
+    for (int i = 0; i < 24; ++i) px[i] = byte_of(w[i >> 2], i & 3);
   } else {
-    const int comp = blk - 4, cy = mr * 8 + r, cx = mc * 8 + c;
-    if (rgb) {
-      const int cye = min(cy, (H + 1) / 2 - 1);
-      const int r0 = 2 * cye, r1 = min(2 * cye + 1, H - 1), c0 = min(2 * cx, W - 1), c1 = min(2 * cx + 1, W - 1);
-      const uint8_t* row0 = f + 3LL * r0 * W;
-      const uint8_t* row1 = f + 3LL * r1 * W;
-      v = (ycc_c(row0 + 3 * c0, comp) + ycc_c(row0 + 3 * c1, comp) + ycc_c(row1 + 3 * c0, comp) +
-           ycc_c(row1 + 3 * c1, comp) + 1 + (cx & 1)) >> 2;
-    } else {
-      const int ch = H / 2, cw = W / 2;
-      const uint8_t* plane = f + (long long)H * W + (long long)comp * ch * cw;
-      v = plane[(long long)min(cy, ch - 1) * cw + min(cx, cw - 1)];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint8_t* p = row + 3 * min(x0 + k, W - 1);
+      px[3 * k] = p[0];
+      px[3 * k + 1] = p[1];
+      px[3 * k + 2] = p[2];
     }
   }
-  s[blk][pos] = v - 128;
-  __syncthreads();
-  if (t < 48) fdct_pass<true>(&s[t >> 3][(t & 7) * 8], 1);
-  __syncthreads();
-  if (t < 48) fdct_pass<false>(&s[t >> 3][t & 7], 8);
-  __syncthreads();
-
-  const int x = s[blk][pos], q = quant[(blk < 4 ? 0 : 64) + pos] * 8;
-  const int mag = (abs(x) + (q >> 1)) / q;
-  qs[blk][pos] = x < 0 ? -mag : mag;
-  const int hb = (H + 7) >> 3, wb = (W + 7) >> 3;
-  const bool dummy = blk < 4 && (mr * 2 + (blk >> 1) >= hb || mc * 2 + (blk & 1) >= wb);
-  __syncthreads();
-  if (t == 0) {
-    for (int b = 1; b < 4; ++b)
-      if (mr * 2 + (b >> 1) >= hb || mc * 2 + (b & 1) >= wb) qs[b][0] = qs[b - 1][0];
+  unsigned b0[2] = {0, 0}, r0[2] = {0, 0};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int r = px[3 * k], g = px[3 * k + 1], b = px[3 * k + 2];
+    s[k] = ycc_y(r, g, b);
+    b0[k >> 2] |= (unsigned)ycc_cb(r, g, b) << (8 * (k & 3));
+    r0[k >> 2] |= (unsigned)ycc_cr(r, g, b) << (8 * (k & 3));
   }
-  __syncthreads();
-  const int res = (dummy && pos != 0) ? 0 : qs[blk][pos];
-  const long long nblocks = (long long)((H + 15) >> 4) * mx * 6;
-  out[((blockIdx.y * nblocks) + (long long)mcu * 6 + blk) * 64 + kZigzagPos[pos]] = (int16_t)res;
+  *cb = make_uint2(b0[0], b0[1]);
+  *cr = make_uint2(r0[0], r0[1]);
+}
+
+__device__ __forceinline__ int descale(int x, int n) { return (x + (1 << (n - 1))) >> n; }
+
+// one pass of jpeg_fdct_islow over d[0..7] in registers, 32-bit throughout
+template <bool kFirst>
+__device__ __forceinline__ void fdct8(int (&d)[8]) {
+  constexpr int kConst = 13, kPass1 = 2;
+  constexpr int kOdd = kFirst ? kConst - kPass1 : kConst + kPass1;
+  const int tmp0 = d[0] + d[7], tmp7 = d[0] - d[7];
+  const int tmp1 = d[1] + d[6], tmp6 = d[1] - d[6];
+  const int tmp2 = d[2] + d[5], tmp5 = d[2] - d[5];
+  const int tmp3 = d[3] + d[4], tmp4 = d[3] - d[4];
+  const int tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  d[0] = kFirst ? (tmp10 + tmp11) * (1 << kPass1) : descale(tmp10 + tmp11, kPass1);
+  d[4] = kFirst ? (tmp10 - tmp11) * (1 << kPass1) : descale(tmp10 - tmp11, kPass1);
+  const int z1 = (tmp12 + tmp13) * 4433;
+  d[2] = descale(z1 + tmp13 * 6270, kOdd);
+  d[6] = descale(z1 + tmp12 * -15137, kOdd);
+  const int z5 = (tmp4 + tmp5 + tmp6 + tmp7) * 9633;
+  const int o1 = (tmp4 + tmp7) * -7373, o2 = (tmp5 + tmp6) * -20995;
+  const int o3 = (tmp4 + tmp6) * -16069 + z5, o4 = (tmp5 + tmp7) * -3196 + z5;
+  d[7] = descale(tmp4 * 2446 + o1 + o3, kOdd);
+  d[5] = descale(tmp5 * 16819 + o2 + o4, kOdd);
+  d[3] = descale(tmp6 * 25172 + o2 + o3, kOdd);
+  d[1] = descale(tmp7 * 12299 + o1 + o4, kOdd);
+}
+
+// table: per component (luma, chroma) and natural position, {ceil(2^32 / 8q),
+// 4q | zigzag position << 16} (video/jpeg.py _fdct_table)
+__global__ void __launch_bounds__(kFdctWarps * 32) fdct_quant_kernel(const uint8_t* __restrict__ frames,
+                                                                     const uint2* __restrict__ table,
+                                                                     int16_t* __restrict__ out, int H, int W,
+                                                                     int rgb) {
+  __shared__ uint2 tbl[kChromaTable + 64];
+  __shared__ __align__(16) uint8_t tile[2][16][kTileStride];  // the strip's Cb and Cr (RGB route)
+  __shared__ int tr[kFdctWarps][4][8][9];                       // each warp's four blocks, transposed
+  __shared__ __align__(16) int16_t stage[kFdctWarps][4][64];    // each warp's four blocks, zigzag order
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, b = lane >> 3, r = lane & 7;
+  const int mx = (W + 15) >> 4, strips = (mx + kStripMcus - 1) / kStripMcus;
+  const int mr = blockIdx.x / strips, m0 = (blockIdx.x % strips) * kStripMcus;
+  const bool luma = warp < kStripMcus;
+  const int lm = luma ? warp : (warp - kStripMcus) * 2 + (b >> 1);  // the MCU in the strip
+  const int mc = m0 + lm, mcl = min(mc, mx - 1);                    // loads past the last MCU stay inside
+  const int blk = luma ? b : 4 + (b & 1);                            // Y00 Y01 Y10 Y11 Cb Cr
+  const uint8_t* f = frames + (size_t)blockIdx.y * (rgb ? (size_t)3 * H * W : (size_t)H * W * 3 / 2);
+  for (int i = threadIdx.x; i < 128; i += blockDim.x) tbl[(i >> 6) * kChromaTable + (i & 63)] = table[i];
+
+  int s[8];
+  if (luma) {
+    const int y = min(mr * 16 + (b >> 1) * 8 + r, H - 1), x0 = mcl * 16 + (b & 1) * 8;
+    if (rgb) {
+      uint2 cb, cr;
+      load_rgb_row(f + (size_t)3 * y * W, x0, W, s, &cb, &cr);
+      const int ty = (b >> 1) * 8 + r, tx = lm * 16 + (b & 1) * 8;
+      *reinterpret_cast<uint2*>(&tile[0][ty][tx]) = cb;
+      *reinterpret_cast<uint2*>(&tile[1][ty][tx]) = cr;
+    } else {
+      load_row(f + (size_t)y * W, x0, W, s);
+    }
+  }
+  __syncthreads();  // the table, and the RGB route's tile
+  if (!luma) {
+    const int comp = blk - 4;
+    if (rgb) {
+      // chroma row cy of the MCU row from pixel rows 2cy and 2cy + 1 of the strip
+      const int cy = min(mr * 8 + r, (H + 1) / 2 - 1) - mr * 8;
+      const uint4 a = *reinterpret_cast<const uint4*>(&tile[comp][2 * cy][lm * 16]);
+      const uint4 c = *reinterpret_cast<const uint4*>(&tile[comp][2 * cy + 1][lm * 16]);
+      const unsigned wa[4] = {a.x, a.y, a.z, a.w}, wc[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        s[j] = (byte_of(wa[j >> 1], 2 * (j & 1)) + byte_of(wa[j >> 1], 2 * (j & 1) + 1) +
+                byte_of(wc[j >> 1], 2 * (j & 1)) + byte_of(wc[j >> 1], 2 * (j & 1) + 1) + 1 + (j & 1)) >> 2;
+    } else {
+      const int ch = H / 2, cw = W / 2;
+      const uint8_t* plane = f + (size_t)H * W + (size_t)comp * ch * cw;
+      load_row(plane + (size_t)min(mr * 8 + r, ch - 1) * cw, mcl * 8, cw, s);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] -= 128;
+  fdct8<true>(s);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) tr[warp][b][r][k] = s[k];
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = tr[warp][b][k][r];  // column r of the block
+  fdct8<false>(s);
+
+  // s[u] is coefficient (u, r), natural position 8u + r
+  const uint2* q = tbl + (luma ? 0 : kChromaTable) + r;
+  int v[8], zz[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const uint2 e = q[8 * u];
+    const int mag = (int)__umulhi((unsigned)abs(s[u]) + (e.y & 0xFFFFu), e.x);
+    v[u] = s[u] < 0 ? -mag : mag;
+    zz[u] = (int)(e.y >> 16);
+  }
+  if (luma) {
+    // a dummy block takes the DC of the nearest earlier real block of its MCU
+    const int hb = (H + 7) >> 3, wb = (W + 7) >> 3;
+    int src = b;
+    while (src > 0 && (mr * 2 + (src >> 1) >= hb || mc * 2 + (src & 1) >= wb)) --src;
+    const int dc = __shfl_sync(0xFFFFFFFFu, v[0], src * 8);  // lane 8 src holds block src's column 0
+    if (src != b) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = 0;
+      if (r == 0) v[0] = dc;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) stage[warp][b][zz[u]] = (int16_t)v[u];
+  __syncwarp();
+  if (mc < mx) {
+    // a Y warp's four blocks are contiguous in the output; a chroma warp's
+    // are two runs of two (Cb Cr of each MCU), lanes 0-15 and 16-31
+    const size_t nblocks = (size_t)((H + 15) >> 4) * mx * 6;
+    const size_t first = (size_t)blockIdx.y * nblocks + ((size_t)mr * mx + mc) * 6 + (luma ? 0 : 4);
+    reinterpret_cast<uint4*>(out + first * 64)[luma ? lane : lane & 15] =
+        reinterpret_cast<const uint4*>(stage[warp])[lane];
+  }
 }
 
 // ---------------------------------------------------------------- J2
@@ -584,11 +674,12 @@ int coder_ctas(long long blocks) {
 
 }  // namespace
 
-extern "C" int lb_jpeg_fdct_quant(const void* frames, const void* quant, void* out, int B, int H, int W, int fmt,
+extern "C" int lb_jpeg_fdct_quant(const void* frames, const void* table, void* out, int B, int H, int W, int fmt,
                                   void* stream) {
-  const dim3 grid(((H + 15) / 16) * ((W + 15) / 16), B);
-  fdct_quant_kernel<<<grid, 384, 0, (cudaStream_t)stream>>>((const uint8_t*)frames, (const int*)quant,
-                                                            (int16_t*)out, H, W, fmt);
+  const int strips = ((W + 15) / 16 + kStripMcus - 1) / kStripMcus;
+  const dim3 grid(((H + 15) / 16) * strips, B);
+  fdct_quant_kernel<<<grid, kFdctWarps * 32, 0, (cudaStream_t)stream>>>((const uint8_t*)frames, (const uint2*)table,
+                                                                        (int16_t*)out, H, W, fmt);
   return (int)cudaGetLastError();
 }
 

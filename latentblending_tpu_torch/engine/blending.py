@@ -119,13 +119,30 @@ def _fetch_chunk() -> int:
 
 class _PendingImage:
     """Placeholder in tree_final_imgs for a keyframe whose uint8 copy is
-    still streaming device→host (resolved at the end of run_transition)."""
+    still streaming device→host (resolved at the end of run_transition).
+    Until it is resolved it also keeps its fetch chunk's uint8 batch on the
+    device and the CUDA event recorded once that batch was made (None on
+    the CPU), from which the movie writer codes the chunk without the copy
+    back (video/writer.py write_frames_interp)."""
 
-    __slots__ = ("batch", "row")
+    __slots__ = ("batch", "row", "device_batch", "ready")
 
-    def __init__(self, batch, row: int):
+    def __init__(self, batch, row: int, device_batch: Optional[torch.Tensor] = None, ready=None):
         self.batch = batch
         self.row = row
+        self.device_batch = device_batch
+        self.ready = ready
+
+
+def _fetch_keyframes(u8: torch.Tensor) -> list:
+    """Start the host copy of a chunk of uint8 keyframes [B, ...]: one
+    _PendingImage per row, each also holding the chunk on its device."""
+    ready = None
+    if u8.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(u8.device))
+    host = _fetch(u8)
+    return [_PendingImage(host, r, u8, ready) for r in range(u8.shape[0])]
 
 
 def resolve_image(im, batch_cache: dict) -> np.ndarray:
@@ -801,8 +818,7 @@ class BlendingEngine:
         self.tree_fracts = [0.0, 1.0]
         with self.timer.phase("vae_decode"):
             edge_pm1 = self.dh.decode_to_pm1_batched(torch.cat([list_latents1[-1], list_latents2[-1]], dim=0))
-            edge_u8 = _fetch(self._fetch_keyframes_u8(edge_pm1))
-        self.tree_final_imgs = [_PendingImage(edge_u8, 0), _PendingImage(edge_u8, 1)]
+            self.tree_final_imgs = _fetch_keyframes(self._fetch_keyframes_u8(edge_pm1))
         self._imgs_dev = [edge_pm1[0], edge_pm1[1]]
         self.tree_idx_injection = [0, 0]
         # predictive policy: no device value is read between levels, so the
@@ -979,7 +995,7 @@ class BlendingEngine:
         )
         self.tree_fracts = [0.0] + [fracts[i] for i in sorted_stems] + [1.0]
         self.tree_idx_injection = [0] + [idx_injection] * k + [0]
-        self.tree_final_imgs = [_PendingImage(*chunk_of[row]) for row in order_rows]
+        self.tree_final_imgs = [chunk_of[row] for row in order_rows]
         self._imgs_dev = [pm1_of[row] for row in order_rows]
         with self.timer.phase("similarity"):
             self._sims_pending = _fetch(self._dispatch_similarities())
@@ -1151,7 +1167,7 @@ class BlendingEngine:
         self.tree_fracts = [0.0] + [fracts[i] for i in sorted_stems] + [1.0]
         self.tree_idx_injection = [0] + [stems[i][3] for i in sorted_stems] + [0]
         self.tree_similarities = list(plan_sims)
-        self.tree_final_imgs = [_PendingImage(*chunk_of[row]) for row in order_rows]
+        self.tree_final_imgs = [chunk_of[row] for row in order_rows]
         self._imgs_dev = [pm1_of[row] for row in order_rows]
         with self.timer.phase("similarity"):
             self._sims_pending = _fetch(self._dispatch_similarities())
@@ -1165,17 +1181,16 @@ class BlendingEngine:
         """Decode → convert → host copy in chunks of LB_FETCH_CHUNK rows, in
         fract (left-to-right) order, so the first keyframes can be consumed
         while later chunks still decode. Returns ({row: pm1_row},
-        {row: (handle, index in the chunk)})."""
+        {row: its keyframe handle})."""
         csize = _fetch_chunk()
         pm1_of: dict[int, torch.Tensor] = {}
-        chunk_of: dict[int, tuple] = {}
+        chunk_of: dict[int, _PendingImage] = {}
         for j0 in range(0, len(order_rows), csize):
             rows = order_rows[j0 : j0 + csize]
             pm1 = self.dh.decode_to_pm1_batched(finals[rows])
-            chunk = _fetch(self._fetch_keyframes_u8(pm1))
-            for r, row in enumerate(rows):
+            for r, (row, handle) in enumerate(zip(rows, _fetch_keyframes(self._fetch_keyframes_u8(pm1)))):
                 pm1_of[row] = pm1[r]
-                chunk_of[row] = (chunk, r)
+                chunk_of[row] = handle
         return pm1_of, chunk_of
 
     def _i420_fetch_ok(self) -> bool:
@@ -1197,12 +1212,16 @@ class BlendingEngine:
     def _resolve_keyframes(self, batch_cache: Optional[dict] = None):
         """Materialize every pending keyframe (one host read per shared
         batch; copies already in batch_cache are reused), converting I420
-        keyframes so tree_final_imgs is always uint8 RGB."""
+        keyframes so tree_final_imgs is always uint8 RGB. A resolved handle
+        lets go of its device batch."""
         batch_cache = {} if batch_cache is None else batch_cache
-        self.tree_final_imgs = [
-            to_rgb(resolve_image(im, batch_cache)) if isinstance(im, _PendingImage) else im
-            for im in self.tree_final_imgs
-        ]
+        imgs = []
+        for im in self.tree_final_imgs:
+            if isinstance(im, _PendingImage):
+                im.device_batch = im.ready = None
+                im = to_rgb(resolve_image(im, batch_cache))
+            imgs.append(im)
+        self.tree_final_imgs = imgs
 
     def _finalize_report(self, sync_sims: bool = True):
         deferred = False
@@ -1385,12 +1404,10 @@ class BlendingEngine:
             u8_dev = self._fetch_keyframes_u8(imgs_pm1)
             # host copies in chunks ordered by fract
             csize = _fetch_chunk()
-            chunk_of: dict[int, tuple] = {}
+            chunk_of: dict[int, _PendingImage] = {}
             for j0 in range(0, k, csize):
                 rows = order[j0 : j0 + csize]
-                chunk = _fetch(u8_dev if rows == list(range(k)) else u8_dev[rows])
-                for r, i in enumerate(rows):
-                    chunk_of[i] = (chunk, r)
+                chunk_of.update(zip(rows, _fetch_keyframes(u8_dev if rows == list(range(k)) else u8_dev[rows])))
         M = N - idx_injection
         with self.timer.phase("similarity"):
             for i in order:
@@ -1398,7 +1415,7 @@ class BlendingEngine:
                 b_parent1, _ = get_closest_idx(fract_mixing, self.tree_fracts)
                 idx_insert = b_parent1 + 1
                 self.tree_latents.insert(idx_insert, [None] * idx_injection + [traj[j, i : i + 1] for j in range(M)])
-                self.tree_final_imgs.insert(idx_insert, _PendingImage(*chunk_of[i]))
+                self.tree_final_imgs.insert(idx_insert, chunk_of[i])
                 self._imgs_dev.insert(idx_insert, imgs_pm1[i])
                 self.tree_fracts.insert(idx_insert, fract_mixing)
                 self.tree_idx_injection.insert(idx_insert, idx_injection)
@@ -1557,7 +1574,8 @@ class BlendingEngine:
             ms.finalize()
         self.note_writer(ms)
         log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
-        self._resolve_keyframes(batch_cache)
+        with self.timer.phase("keyframe_fetch"):
+            self._resolve_keyframes(batch_cache)
         self._finalize_report()
         return self.tree_final_imgs
 

@@ -62,31 +62,37 @@ def stream_frames_lazy(handles: list, nmb_frames_target: int, resolve):
     yield cur
 
 
-def stream_frames_lazy_device(handles: list, nmb_frames_target: int, resolve, device):
-    """stream_frames_lazy on a device: the same plan and `_lerp_u8`'s rule
-    (f32 weights, each product and the sum rounded, clip, truncating cast)
-    as torch ops; yields uint8 [H, W, 3] tensors on `device`."""
+def stream_gaps_device(handles: list, nmb_frames_target: int, resolve, device, per_call: int):
+    """stream_frames_lazy on a device, a gap at a time: uint8 [F, H, W, 3]
+    tensors on `device`, the first keyframe alone, then each gap's
+    in-between frames with the next keyframe after them (each keyframe
+    alone when there is nothing to fill). A gap of more than `per_call`
+    frames comes in batches of `per_call` in order, each lerped on its
+    own, so a long gap takes no more memory than `per_call` frames. The
+    same plan and `_lerp_u8`'s rule (f32 weights, each product and the sum
+    rounded, clip, truncating cast) as torch ops, a batch's fractions at
+    once."""
     def key(h) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(np.asarray(resolve(h)), dtype=np.uint8)).to(device)
 
     K = len(handles)
-    if nmb_frames_target <= K:
-        for h in handles:
-            yield key(h)
-        return
-    counts = frame_insert_counts(K, nmb_frames_target)
+    counts = frame_insert_counts(K, nmb_frames_target) if nmb_frames_target > K else [0] * (K - 1)
     cur = key(handles[0])
+    yield cur[None]
     cur_f = cur.float()
     for i in range(K - 1):
         nxt = key(handles[i + 1])
-        yield cur
         nxt_f = nxt.float()
-        for f in np.linspace(0, 1, counts[i] + 2)[1:-1]:
-            w0 = torch.tensor(1.0 - float(f), dtype=torch.float32, device=device)
-            w1 = torch.tensor(float(f), dtype=torch.float32, device=device)
-            yield (w0 * cur_f + w1 * nxt_f).clamp_(0, 255).to(torch.uint8)
-        cur, cur_f = nxt, nxt_f
-    yield cur
+        fr = np.linspace(0, 1, counts[i] + 2)[1:-1]
+        for s in range(0, len(fr) + 1, per_call):
+            part = fr[s:s + per_call]
+            shape = (len(part),) + (1,) * cur.ndim
+            w0 = torch.tensor(1.0 - part, dtype=torch.float32, device=device).reshape(shape)
+            w1 = torch.tensor(part, dtype=torch.float32, device=device).reshape(shape)
+            batch = (w0 * cur_f + w1 * nxt_f).clamp_(0, 255).to(torch.uint8)
+            # the gap's last batch ends with the next keyframe
+            yield torch.cat([batch, nxt[None]]) if s + per_call > len(fr) else batch
+        cur_f = nxt_f
 
 
 def stream_frames_linear_interp(list_imgs: list, nmb_frames_target: int):

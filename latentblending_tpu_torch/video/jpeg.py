@@ -8,9 +8,11 @@ the card with three hand-written kernels (csrc/jpeg.cu):
 - J1 `fdct_quant`: libjpeg's forward_DCT (the integer "islow" transform of
   jfdctint.c) and quantize, per 8×8 block, from packed I420 planes
   [B, H·3/2, W] or from RGB [B, H, W, 3] (then libjpeg's fixed-point
-  rgb_ycc_convert and h2v2_downsample first). Output: int16 coefficients
-  [B, nblocks, 64] in zigzag order and in the scan's MCU order (Y00 Y01 Y10
-  Y11 Cb Cr per 16×16 MCU), dummy blocks included.
+  rgb_ycc_convert and h2v2_downsample first), B frames a call. Output:
+  int16 coefficients [B, nblocks, 64] in zigzag order and in the scan's MCU
+  order (Y00 Y01 Y10 Y11 Cb Cr per 16×16 MCU), dummy blocks included. The
+  kernel works in 32-bit integers and divides by a multiply-high with a
+  per-position reciprocal (`_fdct_table`).
 - J2 `coef_lerp_batch`: round((1-t)·a + t·b) of two keyframes'
   coefficients for F fractions in one call (the DCT is linear, so this is
   each in-between frame's JPEG): the rule of native/jpeg_coef_lerp.cpp:
@@ -46,12 +48,14 @@ import torch
 
 from latentblending_tpu_torch.ops import _build
 
-# one count per wrapper call that launches its kernels (a J2 call lerps F
-# fractions; a J3 call codes F frames in eight launches and one copy);
-# launches_fdct_rgb counts J1's launches from RGB frames apart (they are in
-# launches_fdct too), launches_huffman_frames the frames J3's calls coded
+# one count per wrapper call that launches its kernels (a J1 call codes B
+# frames; a J2 call lerps F fractions; a J3 call codes F frames in eight
+# launches and one copy); launches_fdct_rgb counts J1's launches from RGB
+# frames apart (they are in launches_fdct too), launches_fdct_frames and
+# launches_huffman_frames the frames J1's and J3's calls coded
 launches_fdct = 0
 launches_fdct_rgb = 0
+launches_fdct_frames = 0
 launches_lerp = 0
 launches_huffman = 0
 launches_huffman_frames = 0
@@ -63,6 +67,9 @@ NATURAL_ORDER = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ], np.int64)
+
+# zigzag position of each natural index
+ZIGZAG_POS = np.argsort(NATURAL_ORDER)
 
 # Annex K.1 quantization tables, natural order (libjpeg std_luminance_quant_tbl
 # and std_chrominance_quant_tbl)
@@ -139,6 +146,26 @@ def quant_tables(quality: int) -> np.ndarray:
     TRUE) installs: int64 [2, 64], natural order, values in 1..255."""
     scale = quality_scaling(quality)
     return np.stack([np.clip((base * scale + 50) // 100, 1, 255) for base in (_LUMA_Q, _CHROMA_Q)])
+
+
+def quant_reciprocal(divisor: np.ndarray) -> np.ndarray:
+    """ceil(2^32 / d) as uint32, for divisors 2 <= d < 2^16: the high 32
+    bits of n · ceil(2^32 / d) are n // d for every n < 2^16 (the error
+    n · (ceil(2^32/d) - 2^32/d) / 2^32 stays below 2^-16 < 1/d), which J1's
+    numerators |x| + 4q (|x| <= 8192, 4q <= 1020) are."""
+    return (-(-(1 << 32) // np.asarray(divisor, np.int64))).astype(np.uint32)
+
+
+def _fdct_table(quality: int) -> np.ndarray:
+    """J1's quantizer for `quality`: uint32 [2, 64, 2] (luma, chroma; natural
+    order): ceil(2^32 / 8q), and 4q with the position's zigzag index in the
+    high 16 bits. The kernel computes (|x| + 4q) / 8q as the high word of
+    (|x| + 4q) · ceil(2^32 / 8q)."""
+    q8 = quant_tables(quality) * 8
+    out = np.empty((2, 64, 2), np.uint32)
+    out[..., 0] = quant_reciprocal(q8)
+    out[..., 1] = (q8 // 2) | (ZIGZAG_POS << 16)
+    return out
 
 
 def mcu_grid(height: int, width: int) -> tuple[int, int]:
@@ -400,8 +427,8 @@ def _device_table(kind: str, device, quality: int | None = None) -> torch.Tensor
     key = (kind, quality, str(device))
     t = _DEVICE_TABLES.get(key)
     if t is None:
-        if kind == "quant":
-            t = torch.from_numpy(quant_tables(quality).astype(np.int32)).to(device)
+        if kind == "fdct":
+            t = torch.from_numpy(_fdct_table(quality).view(np.int32)).to(device)
         else:  # (size << 16) | code of the four tables, int32 [4, 256]
             t = torch.from_numpy((HUFF_TABLES[..., 1] << 16 | HUFF_TABLES[..., 0]).astype(np.int32)).to(device)
         _DEVICE_TABLES[key] = t
@@ -419,20 +446,22 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def fdct_quant(frames: torch.Tensor, quality: int, fmt: str = "i420") -> torch.Tensor:
     """J1: uint8 frames, packed I420 [B, H·3/2, W] or RGB [B, H, W, 3] →
-    int16 [B, nblocks, 64] quantized coefficients (zigzag, MCU order)."""
+    int16 [B, nblocks, 64] quantized coefficients (zigzag, MCU order), the
+    B frames in one launch."""
     if not frames.is_cuda:
         return fdct_quant_reference(frames, quality, fmt)
-    global launches_fdct, launches_fdct_rgb
+    global launches_fdct, launches_fdct_rgb, launches_fdct_frames
     h, w = _check_frames("fdct_quant", frames, fmt)
     _check_cuda("fdct_quant", frames)
     B = frames.shape[0]
     out = torch.empty((B, num_blocks(h, w), 64), dtype=torch.int16, device=frames.device)
     if B == 0:
         return out
-    _build.launch("lb_jpeg_fdct_quant", frames, _device_table("quant", frames.device, quality), out,
-            B, h, w, _FMT[fmt])
+    _build.launch("lb_jpeg_fdct_quant", frames, _device_table("fdct", frames.device, quality), out,
+                  B, h, w, _FMT[fmt])
     launches_fdct += 1
     launches_fdct_rgb += fmt == "rgb"
+    launches_fdct_frames += B
     return out
 
 

@@ -404,6 +404,20 @@ class MjpegMp4Writer:
         with self.encoding():
             return jpeg.encode_rgb(frame.to(self.device)[None], q)[0]
 
+    def encode_frames(self, frames: torch.Tensor) -> list[bytes]:
+        """uint8 RGB frames [F, H, W, 3] on this writer's device → their JPEG
+        samples at the movie's quality, one J1 and one J3 call. The movie's
+        first frame settles the quality first (calibrate_quality: a J1 and a
+        J3 call a probe, on that frame alone)."""
+        out = []
+        if not self._q_settled:
+            out.append(self.calibrate_quality(lambda q: self._encode(frames[0], q)))
+            frames = frames[1:]
+        if len(frames):
+            with self.encoding():
+                out += jpeg.encode_rgb(frames, self.quality)
+        return out
+
     # -- rate control --------------------------------------------------------
     def byte_budget(self) -> int | None:
         """Per-frame byte cap from max_bpp, or None when uncapped. A 64 KiB

@@ -183,6 +183,26 @@ def write_frames(ms: MovieSaver, frames, threaded: bool | None = None) -> None:
         raise errs[0]
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == (b.index if b.index is not None else current)
+
+
+def _device_rows(handle, device: torch.device):
+    """(batch, row, ready) for a keyframe handle that holds its fetch chunk's
+    uint8 batch on `device` (engine/blending.py _PendingImage: the batch,
+    the keyframe's row in it and the CUDA event recorded once the batch was
+    made, None on the CPU); None for a keyframe on the host."""
+    batch = getattr(handle, "device_batch", None)
+    if batch is None or not _same_device(batch.device, device):
+        return None
+    return batch, handle.row, handle.ready
+
+
 def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
                         resolve=None, threaded: bool | None = None) -> None:
     """Fill K keyframes up to nmb_frames_target frames and write the movie.
@@ -194,10 +214,16 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
       call), all coded in one J3 call (the first keyframe's sample, and the
       quality probes that settle the movie's quality, one J3 call each); only the
       finished bytes cross to the host. The JAX package's gate picks this
-      path by host cores, which do not encode here.
+      path by host cores, which do not encode here. A keyframe handle that
+      holds its fetch chunk's uint8 batch on the writer's device (the
+      engine's streaming handles) is coded from that batch: one J1 call for
+      all the batch's keyframes, after the writer's stream waits for the
+      batch, with no host read and no upload. Other keyframes are read on
+      the host and uploaded, one J1 call each.
     - "0": the pixel path: keyframes as RGB (I420 converted first, as the
       JAX fallback does), the lerp on the device by `_lerp_u8`'s rule, and
-      each frame encoded by J1 and J3.
+      each gap's in-between frames and next keyframe encoded by one J1 and
+      one J3 call (the first keyframe alone, after its quality probes).
     The ffmpeg backend lerps on the host and pipes RGB frames.
 
     Keyframes are resolved lazily, left to right, so encoding overlaps the
@@ -209,7 +235,7 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
     from latentblending_tpu_torch.ops.schedules import frame_insert_counts
 
     from . import jpeg
-    from .frames import stream_frames_lazy, stream_frames_lazy_device
+    from .frames import stream_frames_lazy, stream_gaps_device
     from .i420 import i420_hw, is_i420, to_rgb
 
     if resolve is None:
@@ -219,46 +245,82 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
         write_frames(ms, stream_frames_lazy(handles, nmb_frames_target, lambda im: to_rgb(resolve(im))),
                      threaded=threaded)
         return
+    h, w = ms.shape_hw
     use_coef = nmb_frames_target > len(handles) and os.environ.get("LB_COEF_LERP", "1") != "0"
     if not use_coef:
+        # a gap's frames a call, split where a call would pass MAX_CALL_COEF_BYTES
+        per_call = max(1, jpeg.MAX_CALL_COEF_BYTES // (jpeg.num_blocks(h, w) * 64 * 2))
         with mj.encoding():
-            for frame in stream_frames_lazy_device(handles, nmb_frames_target, lambda im: to_rgb(resolve(im)),
-                                                   mj.device):
-                ms.write_frame(frame)
+            for batch in stream_gaps_device(handles, nmb_frames_target, lambda im: to_rgb(resolve(im)), mj.device,
+                                            per_call):
+                if tuple(batch.shape[1:3]) != (h, w):
+                    raise ValueError(f"frame shape {tuple(batch.shape[1:3])} != movie shape {(h, w)}")
+                for jpg in mj.encode_frames(batch):
+                    ms.write_encoded(jpg)
         return
 
     ms.used_coef_lerp = True
-    h, w = ms.shape_hw
+    rows = [_device_rows(handle, mj.device) for handle in handles]  # holds the batches until the movie is written
+    batch_coefs: dict = {}
 
-    def prep(handle) -> tuple[torch.Tensor, str]:
-        a = np.ascontiguousarray(np.asarray(resolve(handle)), dtype=np.uint8)
-        hw = i420_hw(a) if is_i420(a) else a.shape[:2]
+    def check_hw(hw) -> None:
         if tuple(hw) != (h, w):
             raise ValueError(f"keyframe shape {tuple(hw)} != movie shape {(h, w)}")
+
+    def device_batch(i: int) -> tuple[torch.Tensor, int, str]:
+        """Keyframe i's chunk batch, its row and format, once the writer's
+        stream waits for the batch (and the allocator keeps it for that
+        stream)."""
+        batch, row, ready = rows[i]
+        fmt = "i420" if batch.ndim == 3 else "rgb"
+        check_hw(i420_hw(batch[0]) if fmt == "i420" else batch.shape[1:3])
+        if ready is not None:
+            stream = torch.cuda.current_stream(batch.device)
+            stream.wait_event(ready)
+            batch.record_stream(stream)
+        return batch, row, fmt
+
+    def keyframe(i: int) -> tuple[torch.Tensor, str]:
+        """Keyframe i alone on the writer's device, and its format."""
+        if rows[i] is not None:
+            batch, row, fmt = device_batch(i)
+            return batch[row], fmt
+        a = np.ascontiguousarray(np.asarray(resolve(handles[i])), dtype=np.uint8)
+        check_hw(i420_hw(a) if is_i420(a) else a.shape[:2])
         return torch.from_numpy(a).to(mj.device), ("i420" if is_i420(a) else "rgb")
 
-    def first(key: tuple[torch.Tensor, str]) -> tuple[bytes, torch.Tensor]:
-        """(sample, coefficients) of the first keyframe; unless an earlier
-        part of the movie did, it settles the writer's quality for the movie
-        (calibrate_quality, a J1 and a J3 call a probe), so every sample
-        shares its quant tables."""
-        frame, fmt = key
-        coefs: dict = {}
-
-        def at(q: int) -> bytes:
-            coefs[q] = jpeg.fdct_quant(frame[None], q, fmt)[0]
-            return jpeg.encode_coefs(coefs[q], h, w, q)
-
-        jpg = at(mj.quality) if mj._q_settled else mj.calibrate_quality(at)
-        return jpg, coefs[mj.quality]
+    def coefs(i: int) -> torch.Tensor:
+        """Keyframe i's coefficients at the movie's quality: its row of one
+        J1 call on its whole chunk batch, or one J1 call of its own."""
+        if rows[i] is None:
+            frame, fmt = keyframe(i)
+            return jpeg.fdct_quant(frame[None], mj.quality, fmt)[0]
+        batch, row, fmt = device_batch(i)
+        if id(batch) not in batch_coefs:
+            batch_coefs[id(batch)] = jpeg.fdct_quant(batch.contiguous(), mj.quality, fmt)
+        return batch_coefs[id(batch)][row]
 
     counts = frame_insert_counts(len(handles), nmb_frames_target)
     with mj.encoding():
-        jcur, ccur = first(prep(handles[0]))
+        if mj._q_settled:
+            ccur = coefs(0)
+            jcur = jpeg.encode_coefs(ccur, h, w, mj.quality)
+        else:
+            # the first keyframe settles the movie's quality (calibrate_quality,
+            # a J1 and a J3 call a probe, on it alone), so every sample shares
+            # its quant tables
+            frame, fmt = keyframe(0)
+            probes: dict = {}
+
+            def at(q: int) -> bytes:
+                probes[q] = jpeg.fdct_quant(frame[None].contiguous(), q, fmt)[0]
+                return jpeg.encode_coefs(probes[q], h, w, q)
+
+            jcur = mj.calibrate_quality(at)
+            ccur = probes[mj.quality]
         ms.write_encoded(jcur)
         for i in range(len(handles) - 1):
-            frame, fmt = prep(handles[i + 1])
-            cnxt = jpeg.fdct_quant(frame[None], mj.quality, fmt)[0]
+            cnxt = coefs(i + 1)
             # the gap's in-between frames, then at t = 1 the next keyframe's
             # sample: one J2 and one J3 call
             gap = jpeg.CoefFrames(ccur, cnxt, h, w, mj.quality)

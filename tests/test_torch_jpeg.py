@@ -28,9 +28,14 @@ libjpeg, on the CPU (the plain versions of kernels J1-J3).
   coder, the plain lerp and the JAX package's `JpegPair.lerp` frame by
   frame; a gap split over several calls (MAX_CALL_COEF_BYTES lowered)
   keeps its samples' order.
+- J1's integer scheme: every intermediate of both passes below 2^29 for
+  any samples (an analytic bound), so the kernel's 32-bit arithmetic is
+  exact; its reciprocal quantizer exact for every numerator below 2^16 and
+  every 8q. The kernel's own source runs on the CPU against the plain
+  version in tests/test_torch_jpeg_kernel_source.py.
 - On a card (marked `gpu`, skipped here): J1-J3, single and batched,
-  against their plain versions, exactly; chip_smoke.py's movie phase runs
-  the same checks.
+  against their plain versions, exactly, J1 also at the movie path's
+  batches; chip_smoke.py's movie phase runs the same checks.
 """
 import cv2
 import numpy as np
@@ -41,6 +46,7 @@ from latentblending_tpu.video._jpeg_lerp import JpegPair
 from latentblending_tpu.video._jpeg_lerp import encode_i420 as jax_encode_i420
 from latentblending_tpu.video.i420 import rgb_to_i420
 from latentblending_tpu_torch.video import jpeg
+from tests.test_torch_jpeg_kernel_source import J1_SIZES, j1_frames
 
 SIZES = [(128, 128), (64, 192)]
 
@@ -176,6 +182,69 @@ def test_frames_are_checked():
         jpeg.encode_rgb(torch.zeros(1, 8, 8, 3), 90)
     with pytest.raises(ValueError, match="RGB"):
         jpeg.encode_rgb(torch.zeros(1, 8, 8, dtype=torch.uint8), 90)
+
+
+# ---------------------------------------------------------------- J1's integer bounds
+
+def _fdct_linear(first: bool) -> tuple[np.ndarray, dict]:
+    """One pass of jpeg_fdct_islow as linear maps of its 8 inputs (descale
+    as exact division): the outputs [8, 8] and each intermediate [8]."""
+    s = list(np.eye(8))
+    tmp0, tmp7, tmp1, tmp6 = s[0] + s[7], s[0] - s[7], s[1] + s[6], s[1] - s[6]
+    tmp2, tmp5, tmp3, tmp4 = s[2] + s[5], s[2] - s[5], s[3] + s[4], s[3] - s[4]
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    odd = 2.0 ** (11 if first else 15)
+    z1 = (tmp12 + tmp13) * 4433
+    z5 = (tmp4 + tmp5 + tmp6 + tmp7) * 9633
+    o1, o2 = (tmp4 + tmp7) * -7373, (tmp5 + tmp6) * -20995
+    o3, o4 = (tmp4 + tmp6) * -16069 + z5, (tmp5 + tmp7) * -3196 + z5
+    terms = {"e2": z1 + tmp13 * 6270, "e6": z1 + tmp12 * -15137, "z5": z5, "o1": o1, "o2": o2, "o3": o3, "o4": o4,
+             "x7": tmp4 * 2446 + o1 + o3, "x5": tmp5 * 16819 + o2 + o4, "x3": tmp6 * 25172 + o2 + o3,
+             "x1": tmp7 * 12299 + o1 + o4, "x7a": tmp4 * 2446 + o1, "x5a": tmp5 * 16819 + o2,
+             "x3a": tmp6 * 25172 + o2, "x1a": tmp7 * 12299 + o1}
+    dc = 4.0 if first else 0.25
+    out = np.stack([(tmp10 + tmp11) * dc, terms["x1"] / odd, terms["e2"] / odd, terms["x3"] / odd,
+                    (tmp10 - tmp11) * dc, terms["x5"] / odd, terms["e6"] / odd, terms["x7"] / odd])
+    return out, terms
+
+
+def _worst(coef: np.ndarray, slack: float = 0.0) -> float:
+    """max |coef · x| over samples x in [-128, 127], plus `slack` per unit of |coef|."""
+    return max(float((np.where(coef > 0, 127, -128) * coef).sum()), float((np.where(coef > 0, 128, -127) * coef).sum())) \
+        + slack * float(np.abs(coef).sum())
+
+
+# every int32 intermediate of J1 stays below this for any samples (test below)
+J1_INTERMEDIATE_BOUND = 1 << 29
+
+
+def test_fdct_intermediates_fit_int32_for_any_samples():
+    """Every intermediate of both passes, as a linear map of the block's 64
+    level-shifted samples in [-128, 127], with the row pass's rounding (at
+    most 1 per output) as slack: the largest (the column pass's z2 term,
+    3.4e8) is below 2^29, so 32-bit integers hold the whole transform."""
+    rows, row_terms = _fdct_linear(True)
+    _, col_terms = _fdct_linear(False)
+    worst = max(_worst(t) for t in row_terms.values())
+    for t in col_terms.values():
+        for c in range(8):  # column c's input j is row j's output c: a map of the 64 samples
+            worst = max(worst, _worst(np.outer(t, rows[c]), slack=1.0 / 128))
+    assert 3.0e8 < worst < J1_INTERMEDIATE_BOUND
+
+
+def test_quant_reciprocal_is_exact():
+    """(|x| + 4q) / 8q as the high word of (|x| + 4q) · ceil(2^32 / 8q):
+    exact for every numerator below 2^16 and every 8q in [8, 2040]; J1's
+    numerators stay below 8192 + 1020."""
+    n = np.arange(1 << 16, dtype=np.uint64)
+    for d in range(8, 2041, 8):
+        m = np.uint64(jpeg.quant_reciprocal(d))
+        np.testing.assert_array_equal((n * m) >> np.uint64(32), n // np.uint64(d), err_msg=f"8q = {d}")
+    table = jpeg._fdct_table(75)
+    q = jpeg.quant_tables(75)
+    np.testing.assert_array_equal(table[..., 1] & 0xFFFF, 4 * q)
+    np.testing.assert_array_equal(table[..., 1] >> 16, np.broadcast_to(jpeg.ZIGZAG_POS, (2, 64)))
+    assert (jpeg.NATURAL_ORDER[jpeg.ZIGZAG_POS] == np.arange(64)).all()
 
 
 # ---------------------------------------------------------------- J2
@@ -556,3 +625,30 @@ def test_jpeg_kernels_match_plain_versions_on_gpu():
     assert torch.equal(offs, offs2) and torch.equal(out[:int(offs[-1])], out2[:int(offs2[-1])])
     with pytest.raises(ValueError, match="plan"):
         jpeg._huffman_scan_replay(mixed, plan[:, :-1])
+
+
+@pytest.mark.gpu
+def test_fdct_quant_batches_match_plain_version_on_gpu():
+    """J1 at the movie path's batches on the card: a fetch chunk of four
+    512² I420 keyframes, twelve 512² RGB keyframes, a pixel gap's 34 RGB
+    frames, an odd I420 size (516×772) and the checkerboards, at several
+    qualities, each one launch coding every frame, equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(1)
+    cases = [((4, 768, 512), "i420"), ((12, 512, 512, 3), "rgb"), ((34, 512, 512, 3), "rgb"),
+             ((2, 774, 772), "i420")]
+    for shape, fmt in cases:
+        frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+        for q in (90, 55, 100):
+            n, nf = jpeg.launches_fdct, jpeg.launches_fdct_frames
+            got = jpeg.fdct_quant(frames, q, fmt)
+            assert (jpeg.launches_fdct, jpeg.launches_fdct_frames) == (n + 1, nf + shape[0])
+            assert torch.equal(got, jpeg.fdct_quant_reference(frames, q, fmt)), (shape, fmt, q)
+    for kind in ("zeros", "ones", "checker1", "checker8"):
+        for fmt, (h, w) in J1_SIZES + [("i420", (512, 512)), ("rgb", (512, 512))]:
+            frames = torch.from_numpy(j1_frames(kind, fmt, h, w)).cuda()
+            for q in (1, 50, 90, 100):
+                assert torch.equal(jpeg.fdct_quant(frames, q, fmt), jpeg.fdct_quant_reference(frames, q, fmt)), \
+                    (kind, fmt, h, w, q)

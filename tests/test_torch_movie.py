@@ -4,11 +4,19 @@
   I420) with LB_WRITER=mjpeg and LB_COEF_LERP=1 in both packages: the two
   MP4 files are byte-equal (keyframe samples libjpeg's, in-between samples
   the coefficient lerp's, the same muxer).
+- The device-batch route (keyframe handles holding their fetch chunk's
+  uint8 batch, as the engine's streaming handles do; CPU tensors here):
+  one J1 call a chunk after the first keyframe's probe, no host read, and
+  an MP4 byte-equal to the host route's and to the JAX writer's, I420 and
+  RGB; run_movie_transition codes each fetch chunk with one J1 call.
 - The pixel path (LB_COEF_LERP=0 in both): equal sample counts and
   byte-equal files against the JAX package's `_lerp_u8` rule (its native
   fixed-point SIMD lerp, host code the port does not carry, rounds where
   `_lerp_u8` truncates: it is switched off there), so frames decoded by cv2
-  are equal, within 1 LSB a fortiori.
+  are equal, within 1 LSB a fortiori; one J1 and one J3 call a gap (its
+  in-between frames and the next keyframe) after the first frame's probe,
+  a long gap (MAX_CALL_COEF_BYTES lowered) in batches of that many frames,
+  in order.
 - calibrate_quality settles on the JAX writer's quality, with the same
   bytes, on a 256² noise frame whose q100 sample exceeds the byte budget.
 - Tiny-turbo run_movie_transition and then write_movie_transition on both
@@ -38,7 +46,11 @@ from latentblending_tpu.video import mjpeg_mp4 as jmp4
 from latentblending_tpu.video import writer as jwriter
 from latentblending_tpu.video.i420 import rgb_to_i420
 from latentblending_tpu_torch.engine.blending import BlendingEngine as TEngine
+from latentblending_tpu_torch.engine.blending import _fetch_keyframes, resolve_image
+from latentblending_tpu_torch.ops.schedules import frame_insert_counts
+from latentblending_tpu_torch.runtime.holder import SDXLHolder as THolder
 from latentblending_tpu_torch.video import frames as tframes
+from latentblending_tpu_torch.video import jpeg as tjpeg
 from latentblending_tpu_torch.video import mjpeg_mp4 as tmp4
 from latentblending_tpu_torch.video import writer as twriter
 from tests.torch_port_util import inject_jax_noise, mjpeg_writers, port_holder_from_jax
@@ -99,6 +111,96 @@ def test_pixel_path_matches_jax(tmp_path, monkeypatch):
     assert tms.nmb_frames == jms.nmb_frames == 20
     assert (tmp_path / "t_m.mp4").read_bytes() == (tmp_path / "j_m.mp4").read_bytes()
     assert _max_lsb(_decoded(tmp_path / "t_m.mp4"), _decoded(tmp_path / "j_m.mp4")) <= 1
+
+
+def _record_calls(monkeypatch) -> tuple[list, list]:
+    """The frames of every J1 (fdct_quant) and J3 (huffman_scan_batch) call, in order."""
+    j1, j3 = [], []
+    fdct, huff = tjpeg.fdct_quant, tjpeg.huffman_scan_batch
+
+    def fdct_quant(frames, quality, fmt="i420"):
+        j1.append(frames.shape[0])
+        return fdct(frames, quality, fmt)
+
+    def huffman_scan_batch(coef):
+        j3.append(coef.shape[0])
+        return huff(coef)
+
+    monkeypatch.setattr(tjpeg, "fdct_quant", fdct_quant)
+    monkeypatch.setattr(tjpeg, "huffman_scan_batch", huffman_scan_batch)
+    return j1, j3
+
+
+@pytest.mark.parametrize("fmt", ["i420", "rgb"])
+def test_device_batch_route_bytes_equal_host_route_and_jax(fmt, tmp_path, monkeypatch):
+    mjpeg_writers(monkeypatch, "1")
+    keys = _keyframes(10)
+    if fmt == "i420":
+        keys = [rgb_to_i420(k) for k in keys]
+    # the engine's streaming handles: chunks of 4 keyframes, each handle its chunk's batch and row
+    handles = [h for j in range(0, 10, 4) for h in _fetch_keyframes(torch.from_numpy(np.stack(keys[j:j + 4])))]
+    j1, _ = _record_calls(monkeypatch)
+    reads = []
+
+    def resolve(h):
+        reads.append(h)
+        return resolve_image(h, {})
+
+    ms = twriter.MovieSaver(str(tmp_path / "dev.mp4"), fps=30, shape_hw=(128, 128), device="cpu")
+    twriter.write_frames_interp(ms, handles, 30, resolve=resolve)
+    ms.finalize()
+    assert reads == [] and ms.used_coef_lerp and ms.jpeg_quality == 90
+    assert j1 == [1, 4, 4, 2]  # keyframe 0's one probe, then one call a chunk
+    del j1[:]
+    _write_both(tmp_path, keys, 30)  # the host route: keyframe 0's probe, then one call a keyframe
+    assert j1 == [1] * 10
+    assert (tmp_path / "dev.mp4").read_bytes() == (tmp_path / "t_m.mp4").read_bytes() == \
+        (tmp_path / "j_m.mp4").read_bytes()
+
+
+def test_run_movie_transition_codes_each_fetch_chunk_once(tmp_path, monkeypatch):
+    mjpeg_writers(monkeypatch, "1")
+    monkeypatch.delenv("LB_FUSED", raising=False)
+    monkeypatch.delenv("LB_KEYFRAME_I420", raising=False)
+    monkeypatch.delenv("LB_FETCH_CHUNK", raising=False)
+    be = TEngine(THolder.from_random("tiny-turbo", seed=0, dtype=torch.float32, device="cpu"))
+    be.set_prompt1("photo of a forest at dawn")
+    be.set_prompt2("photo of a city at night")
+    j1, j3 = _record_calls(monkeypatch)
+    be.run_movie_transition(str(tmp_path / "m.mp4"), duration_transition=1.0, fps=24, fixed_seeds=[420, 421])
+    assert len(be.tree_final_imgs) == 12 and be.last_writer_backend == "mjpeg+coef-lerp"
+    assert j1 == [1, 4, 4, 4]  # the probe, then the three fetch chunks of LB_FETCH_CHUNK=4
+    assert j3 == [1] + [c + 1 for c in frame_insert_counts(12, 24)]
+    assert "keyframe_fetch" in be.last_report.phases
+
+
+def test_pixel_path_codes_a_gap_a_call(tmp_path, monkeypatch):
+    mjpeg_writers(monkeypatch, "0")
+    monkeypatch.setattr(jframes, "_native_lerp_into", None)
+    keys = [rgb_to_i420(k) for k in _keyframes(4)]
+    j1, j3 = _record_calls(monkeypatch)
+    jms, tms = _write_both(tmp_path, keys, 23)
+    # the first frame's probe, then each gap's in-between frames and next keyframe
+    assert j1 == j3 == [1] + [c + 1 for c in frame_insert_counts(4, 23)]
+    assert tms.nmb_frames == jms.nmb_frames == sum(j1) == 23
+    assert (tmp_path / "t_m.mp4").read_bytes() == (tmp_path / "j_m.mp4").read_bytes()
+
+
+@pytest.mark.parametrize("per_call", [1, 3])
+def test_pixel_path_splits_long_gaps_in_order(per_call, tmp_path, monkeypatch):
+    """Above MAX_CALL_COEF_BYTES a gap is lerped and coded in batches of at
+    most that many frames, one J1 and one J3 call each, in order; the file
+    stays byte-equal to the JAX writer's."""
+    mjpeg_writers(monkeypatch, "0")
+    monkeypatch.setattr(jframes, "_native_lerp_into", None)
+    monkeypatch.setattr(tjpeg, "MAX_CALL_COEF_BYTES", tjpeg.num_blocks(128, 128) * 64 * 2 * per_call + 1)
+    keys = [rgb_to_i420(k) for k in _keyframes(3)]
+    j1, j3 = _record_calls(monkeypatch)
+    jms, tms = _write_both(tmp_path, keys, 20)
+    gaps = [[per_call] * (c // per_call) + [c % per_call + 1] for c in frame_insert_counts(3, 20)]
+    assert j1 == j3 == [1] + [n for gap in gaps for n in gap]
+    assert tms.nmb_frames == jms.nmb_frames == sum(j1) == 20
+    assert (tmp_path / "t_m.mp4").read_bytes() == (tmp_path / "j_m.mp4").read_bytes()
 
 
 def test_calibrate_quality_matches_jax(tmp_path):
@@ -185,9 +287,11 @@ def test_fillup_matches_jax(monkeypatch):
     assert len(got) == len(want) == 11
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    dev = tframes.stream_frames_lazy_device(keys, 11, lambda im: im, "cpu")
-    for g, w in zip(dev, want):
-        np.testing.assert_array_equal(g.numpy(), w)
+    for per_call in (11, 2):  # a gap in one batch, and in batches of 2
+        dev = [f for batch in tframes.stream_gaps_device(keys, 11, lambda im: im, "cpu", per_call) for f in batch]
+        assert len(dev) == 11
+        for g, w in zip(dev, want):
+            np.testing.assert_array_equal(g.numpy(), w)
     # device fill-up (round to nearest), within 1 of the JAX package's
     got = tframes.add_frames_linear_interp_device(keys, 11, device="cpu", chunk=4)
     want = jframes.add_frames_linear_interp_device(keys, 11, chunk=4)

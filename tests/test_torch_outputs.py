@@ -10,6 +10,9 @@ keyframe contract.
   False): I420 handles resolve to planes within 1 of the RGB keyframes'
   host conversion; the deferred similarities land later, equal to the
   synchronous ones (rtol 1e-6).
+- The handles keep their fetch chunk's uint8 batch (one tensor shared by
+  a chunk's handles, each its row) for the movie writer, and let go of it
+  once resolve_keyframes has replaced them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -101,6 +104,27 @@ def test_streaming_contract(monkeypatch):
     assert resolve_image(handles[0], {}).shape == (128, 128, 3)
     with pytest.raises(ValueError):
         be.run_transition_streaming(fixed_seeds=[3, 4], keyframe_format="yuv")
+
+
+def test_streaming_handles_hold_their_chunk(monkeypatch):
+    monkeypatch.delenv("LB_FUSED", raising=False)
+    monkeypatch.delenv("LB_KEYFRAME_I420", raising=False)
+    monkeypatch.delenv("LB_FETCH_CHUNK", raising=False)
+    be = BlendingEngine(SDXLHolder.from_random("tiny-turbo", seed=2, dtype=torch.float32, device="cpu"))
+    be.set_prompt1("a forest")
+    be.set_prompt2("a city")
+    handles = be.run_transition_streaming(fixed_seeds=[3, 4])
+    batches = [h.device_batch for h in handles]
+    # the fused path's chunks of LB_FETCH_CHUNK=4 in fract order: one uint8 I420 batch each
+    assert [id(b) for b in batches] == [id(batches[4 * (i // 4)]) for i in range(12)]
+    assert [h.row for h in handles] == [i % 4 for i in range(12)]
+    for h in handles:
+        assert h.ready is None and h.device_batch.dtype == torch.uint8  # no event on the CPU
+        np.testing.assert_array_equal(h.device_batch[h.row].numpy(), resolve_image(h, {}))
+    be.finalize_report()
+    imgs = be.resolve_keyframes()
+    assert all(h.device_batch is None and h.ready is None for h in handles)
+    assert all(im.shape == (128, 128, 3) for im in imgs)
 
 
 @pytest.mark.gpu
