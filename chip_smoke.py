@@ -28,7 +28,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    slerp_tree_step at [12,64,64,4] with and without a window row, pins
    and a self-parent row, at [5|6|10,128,128,4] and on ragged rows; the K1
    wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
-   batch [20,4096,10,64]) plus a peaked case (q scaled by 4); K2 in f32 at
+   batch [20,4096,10,64]) plus a peaked case (q scaled by 4), and at the
+   distributed phase's local shapes [5,1024,10,64] and [10,1024,5,64]; K2 in f32 at
    [12|2,1024,10,64], [10,…] peaked and [4,4096,10,64], K3 in bf16 at
    [4|8|1,4096,1,512], [1,16384,1,512], [2,…] peaked and [1,192,1,512]
    (three key tiles); the K2/K3 wrapper's refusals (no kernel for fp16,
@@ -139,9 +140,24 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    again in turns (b, c, a, a, c, b) with the card's clock and power, one
    profiled run of each predictive path, and the cost model's predictions
    beside the measured walls;
-12. prints one JSON line with every kernel entry's numbers (K1 rows, K1
+12. the multi-GPU layer (distributed_phase), once the turbo and base
+   holders are dropped: one NCCL rank in this process on mesh (1,1) runs
+   SDXL-Turbo 512²'s run_transition(fixed_seeds=[420, 421]) on the
+   per-level path with exactly the per-level launches, its keyframes bit
+   for bit main_path's per-level ones; then two child processes
+   (`chip_smoke.py --mesh-child ...`) share the card over gloo (NCCL
+   refuses two ranks on one device) and run the same transition on mesh
+   (2,1), the stem batch sharded, and (1,2), the UNet's transformer
+   blocks Megatron-sharded: per rank the same launches, K2 at the local
+   shapes ([5|1,1024,10,64] and [10|2,1024,5,64]), both ranks' keyframes
+   byte-equal, tree_fracts main_path's, the keyframes within
+   MESH_LSB_BOUND (max) and MESH_LSB_MEAN_BOUND (mean) of main_path's; it prints the collectives of each
+   transition and the walls, which are no multi-GPU speed (gloo stages
+   every collective through host memory, on one card). K2 at the two
+   local shapes is timed in the kernel phases;
+13. prints one JSON line with every kernel entry's numbers (K1 rows, K1
    tree step, K2 bf16 and f32, K3 f32 and bf16, J1 and its RGB route,
-   J2, J3), then the final line
+   J2, J3, and K2 at the two meshes' local shapes), then the final line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the final line.
@@ -150,6 +166,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -324,8 +341,8 @@ def _k1_close(torch, got, want, dtype) -> tuple:
 
 def _slerp_case(torch, g, shape, dtype, pins: bool = False, misaligned: bool = False) -> dict:
     """slerp_rows vs slerp_rows_reference within K1_BOUND. Every case has
-    row 0 at fraction exactly 0 and row 1 at exactly 1 (a, resp. b, bit for
-    bit). pins=True is the fused scan's case: rows 0-1 at 0 (row 0 slerped
+    row 0 at fraction exactly 0 and row 1 (where there is one) at exactly 1
+    (a, resp. b, bit for bit). pins=True is the fused scan's case: rows 0-1 at 0 (row 0 slerped
     with itself, as edge 1's parental mix), rows 2-3 at exactly 1 (the pin).
     misaligned=True starts a one element past a 16-byte boundary (the
     kernel's scalar path)."""
@@ -336,8 +353,8 @@ def _slerp_case(torch, g, shape, dtype, pins: bool = False, misaligned: bool = F
         a = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(shape)
     b = torch.randn(shape, generator=g, device="cuda").to(dtype)
     f = torch.rand((shape[0],), generator=g, device="cuda")
-    f[0], f[1] = 0.0, 1.0
-    exact = [(0, a), (1, b)]
+    f[0], f[1:2] = 0.0, 1.0
+    exact = [(0, a), (1, b)][:shape[0]]
     if pins:
         b[0] = a[0]
         f[0:2] = 0.0
@@ -645,14 +662,15 @@ def _lb_fused(value):
             os.environ["LB_FUSED"] = old
 
 
-def _run_engine(torch, spec: str, device: str, dtype, weights_from=None):
-    """Engine with prompts set; random weights from seed 0, or the weights
-    and seeded noise of the holder `weights_from` (on another device)."""
+def _run_engine(torch, spec: str, device: str, dtype, weights_from=None, mesh=None):
+    """Engine with prompts set; random weights from seed 0 (on `mesh`, if
+    given), or the weights and seeded noise of the holder `weights_from`
+    (on another device)."""
     from latentblending_tpu_torch.engine.blending import BlendingEngine
     from latentblending_tpu_torch.runtime.holder import SDXLHolder
 
     if weights_from is None:
-        dh = SDXLHolder.from_random(spec, seed=0, dtype=dtype, device=device)
+        dh = SDXLHolder.from_random(spec, seed=0, dtype=dtype, device=device, mesh=mesh)
     else:
         src = weights_from
         dh = SDXLHolder.from_state_dicts(
@@ -845,7 +863,8 @@ K2_PER_EVAL = {512: 10, 1024: 70}
 def main_path(torch, be) -> dict:
     """The port's entry points at full width: the default (fused) path, the
     per-level path, the streaming I420 contract and the cost model. Returns
-    each path's launch counts."""
+    each path's launch counts, each path's warm wall and the per-level
+    path's keyframes and tree_fracts (the distributed phase's reference)."""
     from latentblending_tpu_torch.engine.blending import resolve_image
     from latentblending_tpu_torch.video.i420 import rgb_to_i420
 
@@ -881,8 +900,9 @@ def main_path(torch, be) -> dict:
         "dt_step_by_batch": be._dt_step_by_batch, "dt_unet_step": be.dt_unet_step,
         "dt_vae": be.dt_vae, "dt_sync": be.dt_sync,
     }), flush=True)
-    return {"fused": fused["counts"], "per-level": per_level["counts"]}, {"fused": fused["warm_s"],
-                                                                          "per-level": per_level["warm_s"]}
+    return ({"fused": fused["counts"], "per-level": per_level["counts"]},
+            {"fused": fused["warm_s"], "per-level": per_level["warm_s"]},
+            {"imgs": per_level["imgs"], "fracts": per_level["fracts"]})
 
 
 # the README example's movie: 12 s at 30 fps
@@ -2216,6 +2236,308 @@ def base_phase(torch, turbo_dh) -> dict:
     return {name: r["counts"] for name, r in runs.items()}
 
 
+# The two-rank meshes' keyframes against the unsharded per-level run's, in
+# LSB of the uint8 RGB keyframes: the largest difference and the mean.
+# Set from the first run on the card (NVIDIA H100 80GB HBM3, 700.00 W):
+# (2,1) max 5, mean 0.496; (1,2) max 6, mean 0.509; each bound twice the
+# larger reading. The keyframes are not bit-equal because (2,1) runs the
+# UNet at half the batch (other cuBLAS/cuDNN kernels, other summation
+# orders; the phase also holds (2,1) bit-equal to the same halves run one
+# after another in one process, _split_transition) and (1,2) rounds each
+# row-parallel layer's two bf16 partial products before their f32 sum; a
+# random-weight bf16 UNet over 4 steps and the decoder carry those
+# last-bit differences to a few LSB.
+MESH_LSB_BOUND = 12
+MESH_LSB_MEAN_BOUND = 1.0
+MESH_CHILD_TIMEOUT_S = 600
+MESHES_ON_ONE_CARD = ((2, 1), (1, 2))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _recording_launches():
+    """Counts, by (kernel, shape, dtype), the K1 slerp_rows calls (the
+    denoise's crossfeed, the engine's parental mix) and the K2 calls (d=64
+    flash_attention in the UNet) made inside the block, at the bindings
+    the engine and the UNet call."""
+    import collections
+
+    from latentblending_tpu_torch.engine import blending
+    from latentblending_tpu_torch.models import layers
+    from latentblending_tpu_torch.runtime import denoise
+
+    launched: collections.Counter = collections.Counter()
+    attn, rows_d, rows_b = layers.flash_attention, denoise.slerp_rows, blending.slerp_rows
+
+    def key(kernel, x):
+        return (kernel, tuple(x.shape), str(x.dtype).split(".")[1])
+
+    def attention(q, k, v):
+        if q.shape[-1] == 64:
+            launched[key("K2", q)] += 1
+        return attn(q, k, v)
+
+    def recorded(fn):
+        def slerp_rows(a, b, f):
+            launched[key("K1_rows", a)] += 1
+            return fn(a, b, f)
+        return slerp_rows
+
+    layers.flash_attention, denoise.slerp_rows, blending.slerp_rows = attention, recorded(rows_d), recorded(rows_b)
+    try:
+        yield launched
+    finally:
+        layers.flash_attention, denoise.slerp_rows, blending.slerp_rows = attn, rows_d, rows_b
+
+
+def _mesh_transition(torch, mesh, label: str) -> dict:
+    """One counted run_transition(fixed_seeds=SEEDS) of a full-width
+    SDXL-Turbo engine (random weights from seed 0) on `mesh`: the per-level
+    path with exactly the unsharded per-level launches (K1 slerp_rows, K2,
+    K3 per rank), and K2 called at the mesh's local shapes (the unsharded
+    rows over 'data', rounded up by the pad, and the heads over 'model').
+    Returns, besides, every (kernel, shape, dtype) K1 and K2 launched at:
+    the shapes the phase then holds against their plain versions."""
+    import collections
+
+    t0 = time.perf_counter()
+    be = _run_engine(torch, "sdxl-turbo", "cuda", torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    before = dict(mesh.collectives)
+    with _recording_launches() as launched:
+        _zero_counts()
+        t0 = time.perf_counter()
+        imgs = [im.copy() for im in be.run_transition(fixed_seeds=SEEDS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+    _check_transition(be, imgs, counts, "per-level", K2_PER_EVAL[512], label)
+    for kernel in ("K1_rows", "K2"):  # every launch seen, so every shape is checked
+        seen = sum(c for (k, _, _), c in launched.items() if k == kernel)
+        if seen != counts[kernel]:
+            raise AssertionError(f"{label}: {kernel} launched {counts[kernel]} times, {seen} seen by shape")
+    N = be.dh.num_inference_steps
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    want: collections.Counter = collections.Counter()
+    for rows, evals in [(2, N)] + [(k, N - int(idx)) for idx, n in zip(be.list_idx_injection, be.list_nmb_stems)
+                                   for k in be._round_sizes(int(n))]:
+        want[("K2", (_ceil(rows, n_data), 1024, 10 // n_model, 64), "bfloat16")] += evals * K2_PER_EVAL[512]
+    k2_shapes = {key: c for key, c in launched.items() if key[0] == "K2"}
+    if k2_shapes != want:
+        raise AssertionError(f"{label}: K2 calls by shape {k2_shapes}, expected {dict(want)}")
+    if not be.dh._params_placed:
+        raise AssertionError(f"{label}: the holder never checked its replicated weights")
+    out = {"imgs": imgs, "fracts": list(be.tree_fracts), "counts": counts, "wall_s": wall, "setup_s": setup_s,
+           "launched": sorted([k, list(shape), dt, c] for (k, shape, dt), c in launched.items()),
+           "collectives": {k: mesh.collectives[k] - before[k] for k in before}}
+    print(f"{label}: per-level path, launches {json.dumps(counts)} (exactly the unsharded per-level run's), K1 "
+          f"and K2 calls by local shape {json.dumps(out['launched'])}, collectives in the transition "
+          f"{json.dumps(out['collectives'])}, replicated weights checked (one all-gather of checksums); "
+          f"setup {setup_s:.3f} s, transition {wall:.3f} s (backend {mesh.backend}, one card: no multi-GPU time)",
+          flush=True)
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _split_transition(torch, n_data: int) -> dict:
+    """run_transition(fixed_seeds=SEEDS) of the SDXL-Turbo engine (random
+    weights from seed 0) with no process group, each stem batch denoised
+    as n_data slices one after another: the holder's own sharded denoise
+    on n_data meshes (n_data, 1) without a group, one for each rank's rows,
+    concatenated where the ranks all-gather. Mesh (n_data, 1) on the card
+    must give these keyframes bit for bit: gloo only copies the rows."""
+    from latentblending_tpu_torch.parallel.mesh import Mesh
+
+    be = _run_engine(torch, "sdxl-turbo", "cuda", torch.bfloat16)
+    dh = be.dh
+    shards, sharded = [Mesh(n_data, 1, rank=r) for r in range(n_data)], dh._denoise_sharded
+
+    def each_shard(plan, latents_start, *args):
+        parts = []
+        for mesh in shards:
+            dh.mesh = mesh
+            parts.append(sharded(plan, latents_start, *args))
+        return torch.cat(parts, dim=1)[:, :latents_start.shape[0]]
+
+    dh._denoise_sharded, dh.mesh = each_shard, shards[0]
+    imgs = [im.copy() for im in be.run_transition(fixed_seeds=SEEDS)]
+    if _report_path(be) != "per-level":
+        raise AssertionError(f"split ({n_data},1): expected the per-level path, got {be.last_report.levels}")
+    out = {"imgs": imgs, "fracts": list(be.tree_fracts)}
+    del be, dh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_child(argv: list) -> int:
+    """One of the distributed phase's two ranks on the one card:
+    `python3 chip_smoke.py --mesh-child RANK WORLD PORT DIR`. Joins the
+    gloo group on cuda:0 (NCCL refuses two ranks on one device), runs
+    _mesh_transition on each of MESHES_ON_ONE_CARD, saves its keyframes to
+    DIR and prints its numbers on a line starting MESH_CHILD."""
+    rank, world, port, outdir = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, ROOT)
+    sys.modules["jax"] = None
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from latentblending_tpu_torch.parallel.distributed import init_distributed
+    from latentblending_tpu_torch.parallel.mesh import make_mesh
+    from latentblending_tpu_torch.precision import disable_tf32
+
+    disable_tf32()
+    init_distributed(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank, backend="gloo", device="cuda:0")
+    report = {}
+    for n_data, n_model in MESHES_ON_ONE_CARD:
+        mesh = make_mesh(n_data, n_model)
+        res = _mesh_transition(torch, mesh, f"mesh ({n_data},{n_model}) rank {rank}")
+        np.save(os.path.join(outdir, f"kf_{n_data}x{n_model}_rank{rank}.npy"), np.stack(res.pop("imgs")))
+        report[f"{n_data}x{n_model}"] = res
+        mesh.barrier()
+    dist.destroy_process_group()
+    print("MESH_CHILD " + json.dumps(report), flush=True)
+    return 0
+
+
+def _wait_children(procs: list, timeout: float) -> list:
+    """Every child's output; a child that fails or outlives `timeout` fails
+    the phase, and the others are killed."""
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+                raise AssertionError(f"mesh child {r} timed out after {timeout} s:\n{out[-6000:]}")
+            for line in out.splitlines():
+                if not line.startswith("MESH_CHILD "):
+                    print(f"[rank {r}] {line}", flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"mesh child {r} exited {p.returncode}:\n{out[-6000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def distributed_phase(torch, ref: dict) -> tuple:
+    """The multi-GPU layer on the one card, at SDXL-Turbo 512² full width
+    (random weights from seed 0), against main_path's per-level keyframes
+    `ref` (seeds 420, 421):
+    (a) one NCCL rank in this process, mesh (1,1): per-level, exact
+        launches, keyframes bit-equal to ref (the same batches on the same
+        kernels), tree_fracts equal;
+    (b) two ranks sharing the card over gloo (two child processes), mesh
+        (2,1) then (1,2): per rank exact launches and K2 at the local
+        shapes; both ranks' keyframes byte-equal, tree_fracts equal ref's,
+        keyframes within MESH_LSB_BOUND (max) and MESH_LSB_MEAN_BOUND
+        (mean) of ref; (2,1)'s keyframes bit-equal to _split_transition's
+        (its halves run one after another in this process);
+    (c) every (kernel, shape, dtype) that K1 slerp_rows and K2 launched at
+        in (a) and (b), against its plain version (and K2 against SDPA).
+    Returns ({label: rank 0's launches}, [(c)'s cases, each with rank 0's
+    launches at its shape by mesh]). The walls printed are no multi-GPU
+    speed: gloo stages every collective through host memory, on one card."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from latentblending_tpu_torch.parallel.distributed import init_distributed
+    from latentblending_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    init_distributed(f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    backend = dist.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"mesh (1,1): backend {backend}, expected nccl")
+    one = _mesh_transition(torch, make_mesh(1, 1), "mesh (1,1) nccl")
+    dist.destroy_process_group()
+    same = len(one["imgs"]) == len(ref["imgs"]) and all(np.array_equal(a, b) for a, b in zip(one["imgs"], ref["imgs"]))
+    print(f"mesh (1,1) nccl: keyframes bit-equal to the unsharded per-level run: {same}; tree_fracts equal: "
+          f"{one['fracts'] == ref['fracts']}", flush=True)
+    if not same or one["fracts"] != ref["fracts"]:
+        raise AssertionError("mesh (1,1): keyframes or tree_fracts differ from the unsharded per-level run")
+    counts = {"mesh (1,1) nccl": one["counts"]}
+    launched = {"mesh (1,1) nccl": one["launched"]}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = {mesh: _split_transition(torch, mesh[0]) for mesh in MESHES_ON_ONE_CARD if mesh[1] == 1}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lb_mesh_") as tmp:
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, "-u", os.path.abspath(__file__), "--mesh-child", str(r), "2",
+                                   str(port), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        outs = _wait_children(procs, MESH_CHILD_TIMEOUT_S)
+        reports = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("MESH_CHILD "))[11:])
+                   for out in outs]
+        for mesh in MESHES_ON_ONE_CARD:
+            tag = f"{mesh[0]}x{mesh[1]}"
+            kfs = [np.load(os.path.join(tmp, f"kf_{tag}_rank{r}.npy")) for r in range(2)]
+            rep0 = reports[0][tag]
+            ranks_equal = (np.array_equal(kfs[0], kfs[1]) and reports[1][tag]["counts"] == rep0["counts"]
+                           and reports[1][tag]["launched"] == rep0["launched"])
+            diff = np.abs(kfs[0].astype(np.int16) - np.stack(ref["imgs"]).astype(np.int16))
+            lsb_max, lsb_mean = int(diff.max()), float(diff.mean())
+            print(f"mesh {mesh} gloo, two ranks on one card: ranks' keyframes and launches equal {ranks_equal}, "
+                  f"tree_fracts equal to the unsharded run's {rep0['fracts'] == ref['fracts']}, keyframes vs the "
+                  f"unsharded per-level run: max {lsb_max} LSB, mean {lsb_mean:.6f} LSB (bounds {MESH_LSB_BOUND}, "
+                  f"{MESH_LSB_MEAN_BOUND}); "
+                  f"collectives per transition {json.dumps(rep0['collectives'])}", flush=True)
+            if not ranks_equal or rep0["fracts"] != ref["fracts"]:
+                raise AssertionError(f"mesh {mesh}: ranks disagree, or tree_fracts {rep0['fracts']} != {ref['fracts']}")
+            if lsb_max > MESH_LSB_BOUND or lsb_mean > MESH_LSB_MEAN_BOUND:
+                raise AssertionError(f"mesh {mesh}: keyframes max {lsb_max} / mean {lsb_mean} LSB from the unsharded "
+                                     f"run, bounds {MESH_LSB_BOUND} / {MESH_LSB_MEAN_BOUND}")
+            if mesh in split:
+                alone = split[mesh]
+                split_lsb = int(np.abs(kfs[0].astype(np.int16) - np.stack(alone["imgs"]).astype(np.int16)).max())
+                print(f"mesh {mesh} gloo vs its halves denoised one after another in one process: max {split_lsb} "
+                      f"LSB (bound 0), tree_fracts equal {rep0['fracts'] == alone['fracts']}", flush=True)
+                if split_lsb or rep0["fracts"] != alone["fracts"]:
+                    raise AssertionError(f"mesh {mesh}: keyframes differ from the same halves run in one process")
+            counts[f"mesh {mesh} gloo rank 0"] = rep0["counts"]
+            launched[f"mesh {mesh} gloo rank 0"] = rep0["launched"]
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s in all, the two-rank part "
+          f"{time.perf_counter() - t0:.1f} s with its process start-up (backends: nccl for (1,1), gloo for the two "
+          f"ranks; walls on one card are no multi-GPU speed)", flush=True)
+
+    # (c): each shape launched, against its plain version
+    by_shape: dict = {}
+    for label, rows in launched.items():
+        for kernel, shape, dtype, c in rows:
+            by_shape.setdefault((kernel, tuple(shape), dtype), {})[label] = c
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for (kernel, shape, dtype), by_path in sorted(by_shape.items()):
+        dt = getattr(torch, dtype)
+        case = _slerp_case(torch, g, shape, dt) if kernel == "K1_rows" else _attention_case(torch, g, shape, dt, 1.0)
+        cases.append((kernel, case, by_path))
+    print(f"distributed phase: {len(cases)} (kernel, shape, dtype) launched, each within its bound of its plain "
+          f"version", flush=True)
+    return counts, cases
+
+
 def _device_kernels(torch, prof) -> tuple:
     """The device kernel events of a torch.profiler run, and {name: (ms, calls)}."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2264,9 +2586,12 @@ def profile_paths(torch, be, paths=(("fused", "1"), ("per-level", "0"))) -> None
         }), flush=True)
 
 
-def _kernels_line(kres: dict, counts: dict) -> list:
+def _kernels_line(kres: dict, counts: dict, local: list) -> list:
     """One entry per kernel entry point: its first case's numbers and its
-    launches during the counted (first) run of each path, summed."""
+    launches during the counted (first) run of each path, summed; then one
+    for each (kernel, shape, dtype) that K1 slerp_rows and K2 launched at in
+    the distributed phase (local: (kernel, case, {mesh: rank 0's launches
+    at that shape})), with those launches."""
     replaces_k1 = "latentblending_tpu/ops/pallas_kernels.py:87"
     meta = {
         "K1_rows": ("slerp_rows (cluster-split rows)", "latentblending_tpu_torch/csrc/slerp.cu", replaces_k1),
@@ -2305,10 +2630,20 @@ def _kernels_line(kres: dict, counts: dict) -> list:
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"], "shape": first["shape"],
         })
+    for kernel, case, by_path in local:
+        kernels.append({
+            "name": f"{meta[kernel][0]} at a shape of the distributed phase", "route": "cuda",
+            "source": meta[kernel][1], "replaces": meta[kernel][2], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"], "shape": case["shape"],
+        })
     return kernels
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(sys.argv[2:])
     if not os.path.isdir(os.path.join(ROOT, "latentblending_tpu_torch")):
         print("chip_smoke.py: latentblending_tpu_torch/ not found beside this script", file=sys.stderr)
         return 2
@@ -2354,7 +2689,7 @@ def main() -> int:
     if unet_params != 2_567_463_684:
         raise AssertionError(f"UNet has {unet_params} parameters, not SDXL's 2567463684")
     print(f"allocated before the main path: {torch.cuda.memory_allocated()} bytes", flush=True)
-    counts, nlpd_walls = main_path(torch, be)
+    counts, nlpd_walls, per_level_ref = main_path(torch, be)
     profile_paths(torch, be)
     movie = movie_phase(torch, be)
     counts.update(movie["counts"])
@@ -2370,8 +2705,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts.update(f32_unet_phase(torch, be.dh))
     counts.update(base_phase(torch, be.dh))
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_counts, local = distributed_phase(torch, per_level_ref)
+    counts.update(dist_counts)
 
-    kernels = _kernels_line(kres, counts)
+    kernels = _kernels_line(kres, counts, local)
     print(f"chip_smoke.py ran for {time.perf_counter() - t_start:.1f} s", flush=True)
     print(_card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

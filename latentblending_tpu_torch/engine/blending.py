@@ -40,6 +40,14 @@ the movie of a finished tree. Both encode on the holder's device
 (video/writer.py); write_imgs_transition writes the keyframes as JPEGs
 (video/jpeg.py) beside their settings (lowres.yaml).
 
+Under a device mesh (SDXLHolder(mesh=...)) every rank runs the whole
+engine (SPMD) on the per-level path, whose stem batches the holder shards:
+the fused paths gather rows within the batch and stay single-device, as
+in the JAX package. To keep the JAX package's single controller, the gap
+similarities and the time-based plan's measured costs are rank 0's on
+every rank, and each method that writes files writes on global rank 0
+only, then waits for the other ranks (parallel/mesh.py).
+
 The gap metric is NLPD (models/perceptual.py) or LPIPS (models/lpips.py),
 chosen as the JAX package chooses it. The reference's single-branch loop
 is here too: compute_latents1/2, get_mixing_parameters,
@@ -69,6 +77,7 @@ from latentblending_tpu_torch.ops.schedules import (
     turbo_branching_plan,
 )
 from latentblending_tpu_torch.ops.slerp import slerp_rows
+from latentblending_tpu_torch.parallel.mesh import broadcast_from_rank0, write_on_rank0
 from latentblending_tpu_torch.profiling import PhaseTimer, TransitionReport
 from latentblending_tpu_torch.runtime.denoise import Conditioning
 from latentblending_tpu_torch.runtime.holder import SDXLHolder
@@ -459,7 +468,8 @@ class BlendingEngine:
         out = self._dt_fused_output if self._dt_fused_output is not None else sync
         # ---- fused path (the gate's structural conditions)
         t_fused = None
-        if self.stem_batch == 0 and len(plan_idx) == 1 and plan_stems[0] >= 1 and plan_idx[0] >= 1:
+        if (self.stem_batch == 0 and len(plan_idx) == 1 and plan_stems[0] >= 1 and plan_idx[0] >= 1
+                and self.dh.mesh is None):
             B = (1 if recycled1 else 2) + plan_stems[0]
             dtf = self.dt_unet_step_fused if self.dt_unet_step_fused is not None else self.dt_unet_step
             t_fused = N * B * dtf + out
@@ -503,7 +513,8 @@ class BlendingEngine:
     def _multilevel_fusable(self) -> bool:
         """Structural validity of the segmented scan: the placements of every
         level must be value-independent (the predictive policy), levels must
-        deepen strictly (rows enter in segment order), all at depth >= 1."""
+        deepen strictly (rows enter in segment order), all at depth >= 1, on
+        one device (the scan's in-batch row gathers)."""
         idx = [int(i) for i in self.list_idx_injection]
         return (
             self._predictive()
@@ -511,6 +522,7 @@ class BlendingEngine:
             and all(i >= 1 for i in idx)
             and all(b > a for a, b in zip(idx, idx[1:]))
             and all(int(n) >= 1 for n in self.list_nmb_stems)
+            and self.dh.mesh is None
         )
 
     def _seg_plan(self, recycled1: bool) -> tuple[list[tuple[int, int]], int]:
@@ -695,8 +707,12 @@ class BlendingEngine:
         )
 
     def get_time_based_branching(self, depth_strength, t_compute_max_allowed=None, nmb_max_branches=None):
+        """The time-based plan from the measured step and decode costs;
+        under a mesh, rank 0's costs, so every rank makes the same plan."""
+        costs = torch.tensor([self.dt_unet_step, self.dt_vae], dtype=torch.float64)
+        dt_unet_step, dt_vae = broadcast_from_rank0(costs, self.dh.mesh).tolist()
         return time_based_branching_plan(
-            self.num_inference_steps, depth_strength, self.dt_unet_step, self.dt_vae,
+            self.num_inference_steps, depth_strength, dt_unet_step, dt_vae,
             t_compute_max_allowed, nmb_max_branches,
         )
 
@@ -783,13 +799,13 @@ class BlendingEngine:
         ok1 = bool(recycle_img1) and self.tree_latents[0] is not None and len(self.tree_latents[0]) == N
         ok2 = bool(recycle_img2) and self.tree_latents[-1] is not None and len(self.tree_latents[-1]) == N
 
-        # the JAX gate also needs no device mesh: the port runs on one device
         structural_ok = (
             not ok2
             and self.stem_batch == 0
             and len(self.list_idx_injection) == 1
             and int(self.list_nmb_stems[0]) >= 1
             and int(self.list_idx_injection[0]) >= 1
+            and self.dh.mesh is None
         )
         gate = os.environ.get("LB_FUSED", "auto")
         take_fused = gate == "1" or (gate != "0" and self._fused_predicted_faster(ok1))
@@ -1508,13 +1524,16 @@ class BlendingEngine:
         from latentblending_tpu_torch.video.jpeg import encode_rgb
         from latentblending_tpu_torch.yaml_text import yml_save
 
-        os.makedirs(dp_img, exist_ok=True)
-        if self.tree_final_imgs:
-            frames = torch.stack([torch.as_tensor(np.asarray(im)) for im in self.tree_final_imgs])
-            for i, data in enumerate(encode_rgb(frames.to(self.dh.device), quality=75)):
-                with open(os.path.join(dp_img, f"lowres_img_{str(i).zfill(4)}.jpg"), "wb") as f:
-                    f.write(data)
-        yml_save(os.path.join(dp_img, "lowres.yaml"), self.get_state_dict())
+        def write():
+            os.makedirs(dp_img, exist_ok=True)
+            if self.tree_final_imgs:
+                frames = torch.stack([torch.as_tensor(np.asarray(im)) for im in self.tree_final_imgs])
+                for i, data in enumerate(encode_rgb(frames.to(self.dh.device), quality=75)):
+                    with open(os.path.join(dp_img, f"lowres_img_{str(i).zfill(4)}.jpg"), "wb") as f:
+                        f.write(data)
+            yml_save(os.path.join(dp_img, "lowres.yaml"), self.get_state_dict())
+
+        write_on_rank0(write)
 
     def _movie_saver(self, fp_movie: str, fps: int):
         from latentblending_tpu_torch.video.writer import MovieSaver
@@ -1530,14 +1549,18 @@ class BlendingEngine:
         from latentblending_tpu_torch.video.writer import write_frames, write_frames_interp
 
         target = int(round(fps * duration_transition))
-        ms = self._movie_saver(fp_movie, fps)
-        if os.environ.get("LB_DEVICE_FILLUP") == "1":
-            write_frames(ms, add_frames_linear_interp_device(self.tree_final_imgs, target, self.dh.device))
-        else:
-            write_frames_interp(ms, self.tree_final_imgs, target)
-        ms.finalize()
-        self.note_writer(ms)
-        log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
+
+        def write():
+            ms = self._movie_saver(fp_movie, fps)
+            if os.environ.get("LB_DEVICE_FILLUP") == "1":
+                write_frames(ms, add_frames_linear_interp_device(self.tree_final_imgs, target, self.dh.device))
+            else:
+                write_frames_interp(ms, self.tree_final_imgs, target)
+            ms.finalize()
+            self.note_writer(ms)
+            log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
+
+        write_on_rank0(write)
 
     def run_movie_transition(self, fp_movie: str, duration_transition: float, fps: int = 30,
                              recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
@@ -1564,16 +1587,19 @@ class BlendingEngine:
             with self.timer.phase("keyframe_fetch"):
                 return resolve_image(im, batch_cache)
 
-        with self.timer.phase("movie_write"):
-            ms = self._movie_saver(fp_movie, fps)
-            if device_fillup:
-                self._resolve_keyframes(batch_cache)
-                write_frames(ms, add_frames_linear_interp_device(self.tree_final_imgs, target, self.dh.device))
-            else:
-                write_frames_interp(ms, self.tree_final_imgs, target, resolve=resolve)
-            ms.finalize()
-        self.note_writer(ms)
-        log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
+        def write():
+            with self.timer.phase("movie_write"):
+                ms = self._movie_saver(fp_movie, fps)
+                if device_fillup:
+                    self._resolve_keyframes(batch_cache)
+                    write_frames(ms, add_frames_linear_interp_device(self.tree_final_imgs, target, self.dh.device))
+                else:
+                    write_frames_interp(ms, self.tree_final_imgs, target, resolve=resolve)
+                ms.finalize()
+            self.note_writer(ms)
+            log.info(f"wrote {ms.nmb_frames} frames to {fp_movie}")
+
+        write_on_rank0(write)
         with self.timer.phase("keyframe_fetch"):
             self._resolve_keyframes(batch_cache)
         self._finalize_report()
@@ -1621,8 +1647,9 @@ class BlendingEngine:
     # ------------------------------------------------------------- similarity
 
     def get_lpips_similarity(self, imgA, imgB) -> float:
-        """The gap metric between two uint8 keyframes, on the holder's device."""
-        return self.lpips.distance(imgA, imgB)
+        """The gap metric between two uint8 keyframes, on the holder's
+        device (rank 0's under a mesh, _agreed)."""
+        return float(self._agreed(torch.tensor([self.lpips.distance(imgA, imgB)], dtype=torch.float64))[0])
 
     def get_closest_idx(self, fract_mixing: float):
         return get_closest_idx(fract_mixing, self.tree_fracts)
@@ -1635,15 +1662,24 @@ class BlendingEngine:
         if len(self.tree_final_imgs) < 2:
             return []
         imgs = self.lpips._prep(np.stack([np.asarray(im) for im in self.tree_final_imgs]), self.dh.device)
-        return self.lpips.distance_batch(imgs[:-1], imgs[1:]).double().cpu().tolist()
+        return self._agreed(self.lpips.distance_batch(imgs[:-1], imgs[1:])).double().cpu().tolist()
+
+    def _agreed(self, sims: torch.Tensor) -> torch.Tensor:
+        """Gap similarities as every rank places stems from them: under a
+        mesh rank 0's, broadcast, since each rank runs the whole engine
+        (SPMD) and a last-bit difference between ranks would split their
+        plans (and their collectives). Every similarity the engine computes
+        passes through here. One-process-per-card PyTorch's way to keep the
+        JAX package's single controller."""
+        return broadcast_from_rank0(sims, self.dh.mesh)
 
     def _dispatch_similarities(self) -> Optional[torch.Tensor]:
         """All adjacent-keyframe distances (the engine's metric) as one
         batched call, left on the device ([K-1]); None with fewer than 2
-        keyframes."""
+        keyframes. Rank 0's under a mesh (_agreed)."""
         if len(self._imgs_dev) < 2:
             return None
-        return self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]), torch.stack(self._imgs_dev[1:]))
+        return self._agreed(self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]), torch.stack(self._imgs_dev[1:])))
 
     def _batched_similarities(self) -> list[float]:
         """All adjacent-keyframe distances, on the host."""

@@ -36,6 +36,14 @@ class MovieProject:
     num_inference_steps: int = 4
 
     def save(self, fp_json: str):
+        """Write the project as the reference UI's JSON. Under a process
+        group global rank 0 writes it and the other ranks wait for it
+        (parallel/mesh.write_on_rank0)."""
+        from latentblending_tpu_torch.parallel.mesh import write_on_rank0
+
+        write_on_rank0(self._write, fp_json)
+
+    def _write(self, fp_json: str):
         data = [
             {
                 "settings": "sdxl",
@@ -123,9 +131,13 @@ def run_multi_transition(
     frame encode runs on a background thread while part i+1's transition
     computes on the device — a depth-1 pipeline bounded to one part in
     flight. The reference serializes transition → write → next transition
-    (example_multi_trans.py:52-58)."""
+    (example_multi_trans.py:52-58).
+
+    Under a process group every rank runs the transitions and global rank
+    0 alone writes the movie; the others wait for it at the end."""
     import threading
 
+    from latentblending_tpu_torch.parallel.mesh import is_file_writer, write_on_rank0
     from latentblending_tpu_torch.video.writer import MovieSaver
 
     assert len(project.keyframes) >= 2, "need at least two keyframes"
@@ -139,7 +151,10 @@ def run_multi_transition(
     os.makedirs(workdir, exist_ok=True)
     kfs = list(project.keyframes) + ([project.keyframes[0]] if loop else [])
     target = int(round(fps * duration_single_trans))
-    ms = MovieSaver(fp_movie, fps=fps, shape_hw=(be.dh.height_img, be.dh.width_img), device=be.dh.device)
+    writes = is_file_writer()
+    ms = None
+    if writes:
+        ms = MovieSaver(fp_movie, fps=fps, shape_hw=(be.dh.height_img, be.dh.width_img), device=be.dh.device)
     pending: threading.Thread | None = None
     errs: list[BaseException] = []
     part_reports = []
@@ -173,12 +188,12 @@ def run_multi_transition(
                 pending.join()  # depth-1 pipeline: one part in flight
                 if errs:
                     raise errs[0]
-            if overlap_write:
+            if writes and overlap_write:
                 pending = threading.Thread(
                     target=_write_part, args=(imgs, ms, target, errs), daemon=True
                 )
                 pending.start()
-            else:
+            elif writes:
                 _write_part(imgs, ms, target, errs)
                 if errs:
                     raise errs[0]
@@ -217,7 +232,11 @@ def run_multi_transition(
             "count": len(part_reports),
             "mean_s": round(dt_sync / len(part_reports), 4),
         }
-    ms.finalize()
-    be.note_writer(ms)
-    log.info(f"movie saved to {fp_movie} ({ms.nmb_frames} frames)")
+
+    def finalize():
+        ms.finalize()
+        be.note_writer(ms)
+        log.info(f"movie saved to {fp_movie} ({ms.nmb_frames} frames)")
+
+    write_on_rank0(finalize)
     return fp_movie

@@ -28,7 +28,15 @@ class TreeCacheMismatch(ValueError):
 
 def save_tree(be, fp_npz: str) -> None:
     """Serialize engine.tree_* to fp_npz (portable numpy archive). Pending
-    keyframe handles (a streaming run's) are resolved first."""
+    keyframe handles (a streaming run's) are resolved first. Under a
+    process group global rank 0 writes the file and the other ranks wait
+    for it (parallel/mesh.write_on_rank0)."""
+    from latentblending_tpu_torch.parallel.mesh import write_on_rank0
+
+    write_on_rank0(_save_tree, be, fp_npz)
+
+
+def _save_tree(be, fp_npz: str) -> None:
     from latentblending_tpu_torch.engine.blending import _PendingImage, resolve_image
     from latentblending_tpu_torch.video.i420 import to_rgb
 

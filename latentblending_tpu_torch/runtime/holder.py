@@ -119,10 +119,17 @@ def _holder_device(device) -> torch.device:
 
 class SDXLHolder:
     def __init__(self, spec: ModelSpec | str, modules: dict[str, nn.Module], tokenizer1=None, tokenizer2=None,
-                 dtype: torch.dtype = torch.bfloat16, vae_dtype: Optional[torch.dtype] = None, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, vae_dtype: Optional[torch.dtype] = None, device="cuda",
+                 mesh=None):
         """modules: {'unet', 'vae', 'clip1', 'clip2'} port nn.Modules on `device`
         (the card unless the caller asks for the CPU), the VAE's weights in
         `vae_dtype`.
+
+        mesh: a parallel.mesh.Mesh, or None (one device). With a mesh every
+        rank holds the same weights (checked at the first denoise), shards
+        each stem batch over the mesh's 'data' axis and, when its 'model'
+        axis is > 1, the UNet's transformer blocks over it (parallel/tp.py);
+        the decode and the text towers run replicated on every rank.
 
         vae_dtype: None means float32. The JAX package picks bf16 when its
         backend is a TPU and float32 elsewhere; the port keeps float32 on
@@ -142,6 +149,8 @@ class SDXLHolder:
         self.vae = modules["vae"]
         self.clip1 = modules["clip1"]
         self.clip2 = modules["clip2"]
+        self.mesh = mesh
+        self._params_placed = False
 
         self.tokenizer1 = tokenizer1 or HashTokenizer(
             self.spec.clip1.vocab_size, bos_token_id=0, eos_token_id=self.spec.clip1.eos_token_id,
@@ -511,13 +520,70 @@ class SDXLHolder:
         )
         noise = None
         if plan.sched == "euler_ancestral":
+            # drawn for the unsharded batch on every rank: a sharded run
+            # draws what the unsharded one draws
             noise = self.ancestral_noise(plan.exec_steps, tuple(latents_start.shape))
         self._noise_call += 1
         self._note_warm(("level", plan, tuple(latents_start.shape)))
+        if self.mesh is not None:
+            return self._denoise_sharded(plan, latents_start, cond, mw.to(self.dtype), mc, guidance_scale, noise)
         return denoise_scan(
             self._unet_apply, plan, latents_start, cond, mw.to(self.dtype), mc,
             self.schedule.sigmas, self.schedule.timesteps, guidance_scale, noise=noise,
         )
+
+    def _place_params(self) -> None:
+        """Once, before the first sharded denoise: check that every rank
+        holds the same weights (replicate_params over all four modules), then
+        Megatron-shard the UNet when the 'model' axis is > 1
+        (latentblending_tpu/runtime/holder.py:550-557)."""
+        from latentblending_tpu_torch.parallel.mesh import replicate_params
+        from latentblending_tpu_torch.parallel.tp import shard_unet_params
+
+        if self._params_placed:
+            return
+        replicate_params(nn.ModuleDict({"unet": self.unet, "vae": self.vae, "clip1": self.clip1,
+                                        "clip2": self.clip2}), self.mesh)
+        if self.mesh.shape["model"] > 1:
+            shard_unet_params(self.unet, self.mesh)
+        self._params_placed = True
+
+    def _denoise_sharded(self, plan: DenoisePlan, latents_start, cond: Conditioning, mw, mc, guidance_scale,
+                         noise) -> torch.Tensor:
+        """run_diffusion_batched under a mesh (latentblending_tpu/runtime/holder.py:531-595):
+        the batch padded to a multiple of the 'data' axis by repeating its
+        last row (latents, conditioning, guidance, mix window and
+        coefficients, ancestral draws), this rank's rows denoised, the
+        trajectories gathered over the data group and sliced back to B."""
+        from latentblending_tpu_torch.parallel.mesh import gather_stem_batch, pad_to_multiple, shard_stem_batch
+
+        mesh = self.mesh
+        B = latents_start.shape[0]
+        B_run = pad_to_multiple(B, mesh.shape["data"])
+
+        def rows(x, dim=0):
+            if B_run != B:
+                x = torch.cat([x] + [x.narrow(dim, B - 1, 1)] * (B_run - B), dim=dim)
+            return shard_stem_batch(x, mesh, dim).contiguous()
+
+        self._place_params()
+        local = dataclasses.replace(plan, batch=B_run // mesh.shape["data"])
+        cond = Conditioning(*(None if c is None else rows(c)
+                              for c in (getattr(cond, f.name) for f in dataclasses.fields(cond))))
+        traj = denoise_scan(
+            self._unet_apply, local, rows(latents_start), cond, rows(mw, 1), rows(mc, 1),
+            self.schedule.sigmas, self.schedule.timesteps, rows(guidance_scale),
+            noise=None if noise is None else rows(noise, 1),
+        )
+        return gather_stem_batch(traj, mesh, dim=1)[:, :B]
+
+    def _single_device(self, name: str) -> None:
+        """The fused tree scans gather rows within the batch, which would
+        all-gather a 'data'-sharded batch at every step: mesh holders run
+        run_diffusion_batched per level instead (the JAX package asserts the
+        same, latentblending_tpu/runtime/holder.py:617 and :671)."""
+        if self.mesh is not None:
+            raise RuntimeError(f"{name} is a single-device path; a mesh holder runs run_diffusion_batched per level")
 
     @torch.no_grad()
     def run_tree_batched(
@@ -535,7 +601,9 @@ class SDXLHolder:
         """ONE fused loop over [0,N) computing the edge trajectories and all
         stems of a single-level plan (denoise_scan_tree); returns traj
         [N,B,h,w,4]. The euler_ancestral draws of the whole call come from
-        one ancestral_noise(N, (B,h,w,4)) call."""
+        one ancestral_noise(N, (B,h,w,4)) call. A single-device path: under a
+        mesh it raises, and the engine runs the per-level path."""
+        self._single_device("run_tree_batched")
         B = latents_start.shape[0]
         N = self.num_inference_steps
         use_cfg = self.do_classifier_free_guidance
@@ -583,7 +651,9 @@ class SDXLHolder:
         (denoise_scan_tree_seg): each row runs only its useful steps, in the
         largest batch alive at its depth. Returns the per-segment
         trajectories. The euler_ancestral draws of the call come from one
-        ancestral_noise_steps call, step i of the live batch's shape."""
+        ancestral_noise_steps call, step i of the live batch's shape. A
+        single-device path, as run_tree_batched."""
+        self._single_device("run_tree_seg_batched")
         parent_idx = np.asarray(parent_idx, np.int64)
         B = parent_idx.shape[0]
         N = self.num_inference_steps

@@ -8,6 +8,9 @@ package's host modules.
   `import jax` and `import latentblending_tpu` fail, and so do PIL, yaml,
   safetensors, cv2 and gradio, which the card's machine lacks (the serving
   apps import gradio in their main() only).
+- The multi-GPU layer (parallel/) and ops/flops.py are among the modules
+  checked; flops.py counts what the JAX package's counts (tiny, SDXL-Turbo
+  512², SDXL-base 1024²), and ops/ exports the JAX ops package's names.
 - Every name of latentblending_tpu.__all__ resolves on the port's package
   (lazily: importing the package builds no model), read_movie_frames to
   the port's decoder, yml_load / yml_save to the PyYAML-free ones.
@@ -94,12 +97,15 @@ REFERENCE_MODULES = ["models.lpips", "models.weights", "precision", "yaml_text",
                      "apps.example_multi_trans", "apps.example_multi_trans_json"]
 # the serving path and the movie reader
 SERVING_MODULES = ["apps.gradio_ui", "apps.server", "video.jpeg_decode"]
+# the multi-GPU layer and the analytic FLOP counts
+PARALLEL_MODULES = ["parallel", "parallel.distributed", "parallel.mesh", "parallel.tp", "ops.flops"]
 
 
 def test_port_never_imports_jax():
     mods = _port_modules()
     assert "latentblending_tpu_torch.engine.blending" in mods and len(mods) > 15
-    assert all(f"latentblending_tpu_torch.{m}" in mods for m in MOVIE_MODULES + REFERENCE_MODULES + SERVING_MODULES)
+    assert all(f"latentblending_tpu_torch.{m}" in mods
+               for m in MOVIE_MODULES + REFERENCE_MODULES + SERVING_MODULES + PARALLEL_MODULES)
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'jaxlib', 'latentblending_tpu', 'PIL', 'yaml', 'safetensors', 'cv2', 'gradio'):\n"
@@ -133,6 +139,42 @@ def test_package_exports_the_jax_names():
     code = "import sys; import latentblending_tpu_torch; print('torch' in sys.modules)"
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0 and res.stdout.strip() == "False", res.stderr
+
+
+def test_ops_exports_the_jax_names():
+    """latentblending_tpu_torch.ops exports the JAX ops package's __all__,
+    each from the port's module of the same name, and loads none of them
+    on import."""
+    import latentblending_tpu.ops as jops
+    import latentblending_tpu_torch.ops as tops
+
+    assert tops.__all__ == jops.__all__
+    for name in jops.__all__:
+        value = getattr(tops, name)
+        assert value.__module__.startswith("latentblending_tpu_torch.ops."), name
+        assert value.__module__.rsplit(".", 1)[1] == getattr(jops, name).__module__.rsplit(".", 1)[1], name
+    with pytest.raises(AttributeError):
+        tops.not_a_name
+
+
+@pytest.mark.parametrize("spec, hw, batch", [("tiny-turbo", (128, 128), 3), ("sdxl-turbo", (512, 512), 12),
+                                             ("sdxl-base", (1024, 1024), 20)])
+def test_flops_match_the_jax_package(spec, hw, batch):
+    """ops/flops.py, the jax-free copy, counts what the JAX package's counts:
+    one UNet forward at the latent size and one VAE decode, and it differs
+    from the original only in the configs it imports."""
+    from latentblending_tpu.ops import flops as jflops
+    from latentblending_tpu.runtime.holder import SPECS as JSPECS
+    from latentblending_tpu_torch.ops import flops as tflops
+    from latentblending_tpu_torch.runtime.holder import SPECS as TSPECS
+
+    j, t = JSPECS[spec], TSPECS[spec]
+    h, w = hw[0] // 8, hw[1] // 8
+    assert tflops.unet_forward_flops(t.unet, h, w, batch) == jflops.unet_forward_flops(j.unet, h, w, batch) > 0
+    assert tflops.vae_decode_flops(t.vae, *hw, batch=2) == jflops.vae_decode_flops(j.vae, *hw, batch=2) > 0
+    src = (TPKG / "ops/flops.py").read_text().replace("latentblending_tpu_torch.", "latentblending_tpu.")
+    body = src.split('"""', 2)[2]
+    assert body == (JPKG / "ops/flops.py").read_text().split('"""', 2)[2]
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:

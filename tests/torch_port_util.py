@@ -99,3 +99,26 @@ def mjpeg_writers(monkeypatch, coef_lerp: str) -> None:
     monkeypatch.setenv("LB_COEF_LERP", coef_lerp)
     monkeypatch.setattr(jax_writer, "_ffmpeg_exe", lambda: None)
 
+
+
+def jax_params_from_port(module: torch.nn.Module, kind: str) -> dict:
+    """A port module's state dict as the JAX package's flax param tree
+    (jnp float32 leaves): the inverse of params_from_jax, by the same key
+    map (models/weights.jax_path). kind: 'unet', 'vae' or 'clip'."""
+    import jax.numpy as jnp
+
+    from latentblending_tpu_torch.models.weights import jax_path
+
+    tree: dict = {}
+    for key, t in module.state_dict().items():
+        path, how = jax_path(key, t.ndim, kind)
+        a = t.detach().float().cpu().numpy()
+        if how == "T":
+            a = a.T
+        elif how == "HWIO":
+            a = a.transpose(2, 3, 1, 0)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = jnp.asarray(np.ascontiguousarray(a))
+    return tree
