@@ -14,8 +14,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    and prints the build time, ptxas's registers/spills per kernel and the
    tensor-core and local-memory instruction counts of the built SASS; it
    fails unless K3 bf16 (attention_d512_bf16: wgmma and TMA over a 2-CTA
-   cluster) and K2 in f32 (attention_d64_f32: 3xTF32 on TF32 wgmma) have
-   HGMMA, no HMMA and no spill loads or stores, and unless J1's
+   cluster), K3 in f32 (attention_d512_f32: 3xTF32 on TF32 wgmma and TMA
+   over a 4-CTA cluster) and K2 in f32 (attention_d64_f32: 3xTF32 on TF32
+   wgmma) have HGMMA, no HMMA and no spill loads or stores, and unless J1's
    fdct_quant_kernel has no local memory;
 3. holds J1 exactly against its plain version on frames made here
    (j1_exact_cases: noise at the movie path's batches [1|4,768,512] I420
@@ -28,7 +29,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    slerp_tree_step at [12,64,64,4] with and without a window row, pins
    and a self-parent row, at [5|6|10,128,128,4] and on ragged rows; the K1
    wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
-   batch [20,4096,10,64]) plus a peaked case (q scaled by 4), and at the
+   batch [20,4096,10,64]) plus a peaked case (q scaled by 4), K3 in f32
+   also at [1,64|128|192,1,512] (2, 4 and 6 key tiles), and at the
    distributed phase's local shapes [5,1024,10,64] and [10,1024,5,64]; K2 in f32 at
    [12|2,1024,10,64], [10,…] peaked and [4,4096,10,64], K3 in bf16 at
    [4|8|1,4096,1,512], [1,16384,1,512], [2,…] peaked and [1,192,1,512]
@@ -620,8 +622,11 @@ def kernel_phases(torch) -> dict:
     k2_cases = [((10, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((12, 1024, 10, 64), 1.0),
                 ((2, 4096, 10, 64), 1.0), ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0),
                 ((4, 4096, 10, 64), 1.0), ((20, 4096, 10, 64), 1.0), ((20, 1024, 20, 64), 1.0)]
+    # (+ the shortest sequences K3's 64-row query tiles take: 2, 4 and 6
+    # of its 32-key tiles, the peeled last two alone and after loop steps)
     k3_cases = [((4, 4096, 1, 512), 1.0), ((2, 4096, 1, 512), 1.0), ((1, 16384, 1, 512), 1.0),
-                ((2, 4096, 1, 512), 4.0)]
+                ((2, 4096, 1, 512), 4.0), ((1, 64, 1, 512), 1.0), ((1, 128, 1, 512), 1.0),
+                ((1, 192, 1, 512), 1.0)]
     res["K2"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k2_cases]
     res["K3"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k3_cases]
     # K2 in f32 (an f32 UNet: the fused batch 12, the edges' 2, the
@@ -2601,7 +2606,7 @@ def _kernels_line(kres: dict, counts: dict, local: list) -> list:
                "latentblending_tpu/models/layers.py:192"),
         "K2_f32": ("attention_d64_f32 (3xTF32 wgmma, TMA, operands split once per tile)", "latentblending_tpu_torch/csrc/attention_d64_f32.cu",
                    "latentblending_tpu/models/layers.py:192"),
-        "K3": ("attention_d512_f32 (3xTF32 mma.sync, 2-CTA cluster)",
+        "K3": ("attention_d512_f32 (3xTF32 wgmma, TMA, 4-CTA cluster, operands split once per tile)",
                "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
         "K3_bf16": ("attention_d512_bf16 (wgmma, TMA, 2-CTA cluster)",
                     "latentblending_tpu_torch/csrc/attention_d512_bf16.cu", "latentblending_tpu/models/layers.py:373"),
@@ -2669,7 +2674,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.3f} s -> {os.path.relpath(lib, ROOT)}", flush=True)
     _build.library()
     sass = _print_sass_counts(lib)
-    for kernel in ("attention_d512_bf16", "attention_d64_f32"):
+    for kernel in ("attention_d512_bf16", "attention_d512_f32", "attention_d64_f32"):
         _check_wgmma_sass(sass, kernel)
     fdct = {name: c for name, c in sass.items() if "fdct_quant_kernel" in name}
     if not fdct or any(c["local"] for c in fdct.values()):

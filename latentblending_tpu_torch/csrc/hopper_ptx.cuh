@@ -1,9 +1,9 @@
 // Hand-written PTX helpers shared by the port's kernels (sm_90a):
 // mbarriers (local and across a cluster), TMA tile loads and their tensor
-// maps, cp.async, wgmma (bf16 and TF32, 128-byte swizzle), register
-// reallocation between warpgroups, mma.sync TF32 with a hi/lo operand
-// split, and thread-block-cluster shared memory. Header only; every
-// function is inlined into its kernel or launcher.
+// maps, wgmma (bf16 and TF32, 128-byte swizzle), register reallocation
+// between warpgroups, named barriers, and thread-block-cluster shared
+// memory (remote stores and bulk copies between the CTAs). Header only;
+// every function is inlined into its kernel or launcher.
 #pragma once
 
 #include <cuda.h>
@@ -119,17 +119,6 @@ inline bool make_map_sw128(CUtensorMap* map, const void* ptr, int64_t rows, int 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// ------------------------------------------------------------------ cp.async
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // --------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for the 128-byte swizzle (the layout a
@@ -156,9 +145,10 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 // Pins an accumulator's registers at this point of the program: the
 // compiler may not move reads or writes of them across it (place it after
 // a wgmma_wait and before a wgmma that an in-flight group must not see).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -228,6 +218,70 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// The same TF32 product at N = 32 (D 64x32, 16 registers a thread) and
+// N = 128 (D 64x128, 64 registers), A from registers as above, B K-major
+// from shared memory.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64x32] (+)= A[64x8] * B[8x32], TF32, both operands K-major in shared
+// memory (A: 64 rows of 8 k values in the 128-byte swizzle, as B).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy accesses (wgmma operand reads, TMA writes) of it: a thread
 // that writes an operand runs it before signalling the barrier the wgmma
@@ -247,48 +301,14 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: one warpgroup waits for its own threads only.
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // x truncated to TF32 (the top 19 bits), as the bits of a TF32 operand.
 __device__ __forceinline__ uint32_t tf32_trunc(float x) { return __float_as_uint(x) & 0xffffe000u; }
-
-// ------------------------------------------------------- mma.sync TF32, 3xTF32
-
-// x ~ hi + lo: hi is x rounded to nearest TF32 (10 mantissa bits, ties
-// away from zero, as cvt.rna for finite x) by two integer ops, and lo =
-// x - hi is exact in f32; the tensor core reads only lo's top 19 bits
-// (truncation to TF32), so x is carried to ~2^-21 relative and hi*hi +
-// hi*lo + lo*hi to ~f32 accuracy. cvt.rna.tf32.f32 itself costs ~5 SASS
-// instructions (NaN/Inf checks) per value on sm_90a.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// D[16x8] += A[16x8] * B[8x8], TF32 in, f32 accumulate (row.col fragments).
-// Not volatile: a pure register op the compiler may schedule.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d[n] + c[n] += A * B[n] for NT n-tiles in 3xTF32: hi*hi into d, the two
-// small cross terms into their own accumulator c (summed into d by the
-// caller at the end). Keeping the small terms apart from the large sum
-// keeps their bits (3x smaller error than one accumulator, measured on
-// the H100), and each pass sweeps all n-tiles, so consecutive MMAs into
-// one accumulator are NT instructions apart.
-template <int NT>
-__device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], float (&c)[NT][4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[NT][2],
-                                           const uint32_t (&blo)[NT][2]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) mma_tf32(c[n], alo, bhi[n]);
-#pragma unroll
-  for (int n = 0; n < NT; ++n) mma_tf32(d[n], ahi, bhi[n]);
-#pragma unroll
-  for (int n = 0; n < NT; ++n) mma_tf32(c[n], ahi, blo[n]);
-}
 
 // ------------------------------------------------------------------- clusters
 
@@ -313,10 +333,6 @@ __device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, uint32_t rank
   return r;
 }
 
-__device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a, float b) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
-}
-
 // A store into another CTA of the cluster that counts its 16 bytes on
 // that CTA's mbarrier (`bar` from map_shared_rank) as a TMA load does,
 // releasing at cluster scope: no fence, and the receiver's
@@ -325,6 +341,16 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, flo
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
                    addr),
                "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+               : "memory");
+}
+
+// A bulk copy (the TMA engine) of `bytes` (a multiple of 16) from this
+// CTA's shared memory into another CTA of the cluster (`dst` and `bar` from
+// map_shared_rank), counted on that CTA's mbarrier as a TMA load is. The
+// source is read by the async proxy: its writers fence_proxy_async first.
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
                : "memory");
 }
 

@@ -25,9 +25,12 @@ never write the [B,H,L,L] logits, so memory stays O(L·tile):
   K tiles by TMA and splits each K and V tile once for both consumers (V
   written transposed, as TF32 wgmma wants it), Q split once into
   registers, P split in registers.
-- K3 f32, csrc/attention_d512_f32.cu: 3xTF32 mma.sync, d split across a
-  2-CTA cluster that exchanges partial scores through distributed shared
-  memory; query and key tiles of 64 rows, one head only.
+- K3 f32, csrc/attention_d512_f32.cu: 3xTF32 on TF32 wgmma, d split
+  across a 4-CTA cluster (128 columns a CTA) whose CTAs exchange partial
+  scores by st.async and sum them in rank order; a producer warpgroup
+  loads Q and K by TMA and splits each K and V tile once (V written
+  transposed), the consumer warpgroup keeps Q hi and P split in registers;
+  64-row query tiles, 32-key tiles, one head only.
 - K3 bf16, csrc/attention_d512_bf16.cu: the same cluster split on wgmma,
   loads by TMA from a producer warp, the partial scores exchanged by
   st.async into the partner's shared memory (P rounded to bf16 before
@@ -48,7 +51,8 @@ launches_vae_bf16 = 0  # K3: d=512 bf16
 
 # (head dim, dtype) -> (C entry point, counter name, the sequence multiple
 # its tiles need: K2 bf16 64-row query and 128-row key tiles, K2 f32
-# 128-row query and 64-row key tiles, K3 64-row query and key tiles)
+# 128-row query and 64-row key tiles, K3 f32 64-row query and 32-row key
+# tiles, K3 bf16 64-row query and key tiles)
 _KERNELS = {
     (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "launches_self", 128),
     (64, torch.float32): ("lb_attention_fwd_d64_f32", "launches_self_f32", 128),

@@ -7,10 +7,11 @@ scaled_dot_product_attention.
         [--shapes 12x1024,2x1024] [--rounds 2]
 
 --kernel picks the C entry: k2_f32 (csrc/attention_d64_f32.cu, 10 heads
-of d = 64, f32) or k3_bf16 (csrc/attention_d512_bf16.cu, one head of
-d = 512, bf16). The default variant is the kernel as built. To weigh a
-design change, put it in the source behind a macro and name one variant
-per setting; --source gives a variant another source file (for example the
+of d = 64, f32), k3_f32 (csrc/attention_d512_f32.cu, one head of d = 512,
+f32) or k3_bf16 (csrc/attention_d512_bf16.cu, one head of d = 512, bf16).
+The default variant is the kernel as built. To weigh a design change,
+put it in the source behind a macro and name one variant per setting;
+--source gives a variant another source file (for example the
 parent commit's, unpacked by `git archive` into git-ignored `_scratch/`),
 built with that file's directory on the include path. Each variant is
 compiled with its macro definitions into its own shared library under
@@ -19,7 +20,8 @@ registers and spills printed, and bound with ctypes. Each variant is first
 checked alone in a subprocess with a time limit (a variant that hangs the
 card is killed there, and the run stops): every shape, plus q scaled by 4
 and the shortest sequences the kernel takes, against attention_reference
-within chip_smoke's bound for the kernel. Then one process times all
+within chip_smoke's bound for the kernel (--unchecked NAME: an ablation,
+held to no bound, only run to its end). Then one process times all
 variants in turns (a, b, ..., b, a, repeated --rounds times): device ms by
 CUDA-graph replay (chip_smoke._device_ms) beside
 scaled_dot_product_attention's and the bound. Prints one JSON line per
@@ -46,6 +48,9 @@ KERNELS = {
     "k2_f32": {"source": "attention_d64_f32.cu", "entry": "lb_attention_fwd_d64_f32", "dtype": "float32",
                "heads": 10, "d": 64, "shapes": "12x1024,2x1024,4x4096,10x1024",
                "peaked": (10, 1024), "short": (128, 256, 384)},
+    "k3_f32": {"source": "attention_d512_f32.cu", "entry": "lb_attention_fwd_d512_f32", "dtype": "float32",
+               "heads": 1, "d": 512, "shapes": "4x4096,2x4096,1x16384",
+               "peaked": (2, 4096), "short": (64, 128, 192)},
     "k3_bf16": {"source": "attention_d512_bf16.cu", "entry": "lb_attention_fwd_d512_bf16", "dtype": "bfloat16",
                 "heads": 1, "d": 512, "shapes": "4x4096,8x4096,1x4096,1x16384,2x4096",
                 "peaked": (2, 4096), "short": (64, 128, 192)},
@@ -117,8 +122,9 @@ def _rel_bound(kernel: str) -> float:
     return chip_smoke.K3_BF16_REL_BOUND if KERNELS[kernel]["dtype"] == "bfloat16" else chip_smoke.K3_REL_BOUND
 
 
-def check(kernel: str, name: str, lib: Path, shapes: list[tuple]) -> None:
-    """Each shape (and the peaked and short cases) against the plain version."""
+def check(kernel: str, name: str, lib: Path, shapes: list[tuple], bound_held: bool = True) -> None:
+    """Each shape (and the peaked and short cases) against the plain version;
+    bound_held=False (an ablation) only runs each case to its end."""
     import torch
 
     from latentblending_tpu_torch.ops import attention
@@ -139,7 +145,7 @@ def check(kernel: str, name: str, lib: Path, shapes: list[tuple]) -> None:
         again = torch.equal(_call(torch, fn, q, k, v).float(), got)
         print(json.dumps({"variant": name, "check": list(shape), "q_scale": peak, "max_rel_err": rel,
                           "bound": bound, "repeats_bit_for_bit": again, "ok": ok}), flush=True)
-        if not (ok and again):
+        if bound_held and not (ok and again):
             raise SystemExit(f"variant {name} outside its bound at {shape}")
 
 
@@ -183,6 +189,9 @@ def main() -> int:
     ap.add_argument("--shapes", help="BxL, comma-separated (default: the kernel's path shapes)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--timeout", type=float, default=120.0, help="seconds for each variant's check")
+    ap.add_argument("--unchecked", action="append", default=[], metavar="NAME",
+                    help="hold this variant to no bound, only run its cases to their end in the timed "
+                         "subprocess (an ablation that computes something else); repeatable")
     ap.add_argument("--check-only", metavar="NAME", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -191,7 +200,8 @@ def main() -> int:
     text = args.shapes or KERNELS[kernel]["shapes"]
     shapes = [_shape(kernel, int(b), int(n)) for b, n in (s.split("x") for s in text.split(","))]
     if args.check_only:
-        check(kernel, args.check_only, OUT_DIR / f"{kernel}_{args.check_only}.so", shapes)
+        check(kernel, args.check_only, OUT_DIR / f"{kernel}_{args.check_only}.so", shapes,
+              args.check_only not in args.unchecked)
         return 0
     import torch
 
@@ -208,7 +218,7 @@ def main() -> int:
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in libs:
         cmd = [sys.executable, "-m", "latentblending_tpu_torch.tools.attention_variants", "--kernel", kernel,
-               "--check-only", name, "--shapes", text]
+               "--check-only", name, "--shapes", text, *(["--unchecked", name] if name in args.unchecked else [])]
         try:
             res = subprocess.run(cmd, cwd=ROOT, timeout=args.timeout, capture_output=True, text=True)
         except subprocess.TimeoutExpired:
