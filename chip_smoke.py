@@ -735,32 +735,21 @@ _COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_
                "J3_frames")
 
 
-def _zero_counts() -> None:
-    from latentblending_tpu_torch.ops import attention, slerp
-    from latentblending_tpu_torch.video import jpeg
+_COUNTS_ZERO: dict = {}  # the profiling registry's counters at the last _zero_counts
 
-    slerp.launches = 0
-    slerp.launches_tree_step = 0
-    attention.launches_self = 0
-    attention.launches_self_f32 = 0
-    attention.launches_vae = 0
-    attention.launches_vae_bf16 = 0
-    jpeg.launches_fdct = 0
-    jpeg.launches_fdct_rgb = 0
-    jpeg.launches_fdct_frames = 0
-    jpeg.launches_lerp = 0
-    jpeg.launches_huffman = 0
-    jpeg.launches_huffman_frames = 0
+
+def _zero_counts() -> None:
+    from latentblending_tpu_torch import profiling
+
+    _COUNTS_ZERO.clear()
+    _COUNTS_ZERO.update(profiling.counters())
 
 
 def _read_counts() -> dict:
-    from latentblending_tpu_torch.ops import attention, slerp
-    from latentblending_tpu_torch.video import jpeg
+    """The launch counters (profiling's registry) since the last _zero_counts."""
+    from latentblending_tpu_torch import profiling
 
-    return {"K1_rows": slerp.launches, "K1_tree": slerp.launches_tree_step, "K2": attention.launches_self,
-            "K2_f32": attention.launches_self_f32, "K3": attention.launches_vae,
-            "K3_bf16": attention.launches_vae_bf16, "J1": jpeg.launches_fdct, "J1_rgb": jpeg.launches_fdct_rgb,
-            "J1_frames": jpeg.launches_fdct_frames, "J2": jpeg.launches_lerp, "J3": jpeg.launches_huffman, "J3_frames": jpeg.launches_huffman_frames}
+    return {k: profiling.counter(k) - _COUNTS_ZERO.get(k, 0) for k in _COUNT_KEYS}
 
 
 def _ceil(a: int, b: int) -> int:
@@ -824,6 +813,27 @@ def _check_transition(be, imgs, counts: dict, path: str, k2_per_eval: int, label
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
 
+def _check_trace(be, label: str) -> None:
+    """The last transition's span tree on the card: every denoise step, VAE
+    decode and similarity pass (and embed, where the transition took one)
+    has its device interval; prints the tracer's per-transition numbers."""
+    rep = be.last_report
+    timed = [s for s in rep.spans if s.name in ("step", "vae.decode", "similarity.pass", "embed")]
+    missing = sorted({s.name for s in timed if not (s.device_s or 0) > 0})
+    if be.dh.device.type == "cuda" and (missing or not any(s.name == "step" for s in timed)):
+        raise AssertionError(f"{label}: spans without a device interval: {missing}")
+    steps = [s for s in timed if s.name == "step"]
+
+    def total(name, attr):
+        return sum(getattr(s, attr) or 0.0 for s in timed if s.name == name)
+
+    print(f"{label}: tracer, transition {rep.transition_id}: host_syncs {rep.host_syncs}, "
+          f"{len(steps)} steps at {1e3 * total('step', 'host_s') / max(1, len(steps)):.3f} ms host and "
+          f"{1e3 * total('step', 'device_s') / max(1, len(steps)):.3f} ms device a step, decodes "
+          f"{total('vae.decode', 'device_s'):.4f} s and similarity passes {total('similarity.pass', 'device_s'):.4f} s "
+          f"of device time", flush=True)
+
+
 def _drive_path(torch, be, path: str, label: str, k2_per_eval: int, **recycle) -> dict:
     """First (counted) and warm run_transition of one path (recycle: the
     recycle_img1/2 arguments); returns its numbers and the first run's
@@ -852,6 +862,7 @@ def _drive_path(torch, be, path: str, label: str, k2_per_eval: int, **recycle) -
           f"peak requested {requested} bytes, keyframes reproduce: {same}; card after it (SM clock, "
           f"power, temperature): {_card_state()}", flush=True)
     print(f"{label}: phases (warm run, host clock): {json.dumps(be.last_report.phases)}", flush=True)
+    _check_trace(be, label)
     print(f"{label}: tree_fracts {[round(f, 6) for f in be.tree_fracts]}", flush=True)
     print(f"{label}: similarities {list(be.tree_similarities)}", flush=True)
     if not same or _report_path(be) != path:
@@ -981,13 +992,14 @@ def _j1_case(torch, frames, quality: int, fmt: str, label: str) -> dict:
     (CUDA events), the plain version (CUDA events), the bound (the larger
     of the bytes read and written over the memory rate and libjpeg's
     integer operations over PEAK_FLOPS["int32"]) and its share."""
+    from latentblending_tpu_torch.profiling import counter
     from latentblending_tpu_torch.video import jpeg
 
     B = frames.shape[0]
-    n, nf = jpeg.launches_fdct, jpeg.launches_fdct_frames
+    n, nf = counter("J1"), counter("J1_frames")
     coef = jpeg.fdct_quant(frames, quality, fmt)
-    if (jpeg.launches_fdct, jpeg.launches_fdct_frames) != (n + 1, nf + B):
-        raise AssertionError(f"J1 ({label}): {jpeg.launches_fdct - n} calls of {jpeg.launches_fdct_frames - nf} "
+    if (counter("J1"), counter("J1_frames")) != (n + 1, nf + B):
+        raise AssertionError(f"J1 ({label}): {counter('J1') - n} calls of {counter('J1_frames') - nf} "
                              f"frames, expected 1 of {B}")
     err = _jpeg_exact(torch, f"J1 ({label})", coef, jpeg.fdct_quant_reference(frames, quality, fmt))
     h, w = (frames.shape[1] * 2 // 3, frames.shape[2]) if fmt == "i420" else tuple(frames.shape[1:3])
@@ -1025,6 +1037,7 @@ def j1_exact_cases(torch, device: str = "cuda") -> None:
     of period 1 and 8 (the worst cases of the transform's odd terms) at
     512², 36x34 (I420) and 13x21 (RGB); each at q 1, 50, 90 and 100, one
     launch coding every frame."""
+    from latentblending_tpu_torch import profiling
     from latentblending_tpu_torch.video import jpeg
 
     g = torch.Generator(device=device).manual_seed(14)
@@ -1037,9 +1050,9 @@ def j1_exact_cases(torch, device: str = "cuda") -> None:
             cases.append(((shape, fmt), _checkerboard(torch, shape, fmt, period, device)))
     for (shape, fmt), frames in cases:
         for q in (1, 50, 90, 100):
-            n, nf = jpeg.launches_fdct, jpeg.launches_fdct_frames
+            n, nf = profiling.counter("J1"), profiling.counter("J1_frames")
             got = jpeg.fdct_quant(frames, q, fmt)
-            if (jpeg.launches_fdct, jpeg.launches_fdct_frames) != (n + 1, nf + shape[0]):
+            if (profiling.counter("J1"), profiling.counter("J1_frames")) != (n + 1, nf + shape[0]):
                 raise AssertionError(f"J1 {shape} {fmt}: not one launch of {shape[0]} frames")
             _jpeg_exact(torch, f"J1 {list(shape)} {fmt} q{q}", got, jpeg.fdct_quant_reference(frames, q, fmt))
     print(f"J1 against its plain version, exactly, on {len(cases)} inputs x 4 qualities (noise at "

@@ -64,6 +64,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.engine.config import EngineConfig
 from latentblending_tpu_torch.models.lpips import LPIPSScorer
 from latentblending_tpu_torch.models.perceptual import NLPDScorer
@@ -87,18 +88,22 @@ from latentblending_tpu_torch.video.i420 import to_rgb
 log = get_logger(__name__)
 
 
-def _sync(x: torch.Tensor) -> None:
+def _sync(x: torch.Tensor, reason: str = "denoise") -> None:
     """Wait for the device work producing x, so a phase timer around it
-    measures that work (CUDA runs asynchronously to the host)."""
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
+    measures that work (CUDA runs asynchronously to the host): a
+    `sync.<reason>` wait of the tracer, on any device."""
+    with profiling.wait(reason):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
 
 
 class _HostCopy:
     """A device→host copy in flight: a non_blocking copy into a pinned host
     tensor, and the CUDA event recorded after it. Reading it (np.asarray)
     waits on the event first, so the host never reads a buffer that is
-    still being written."""
+    still being written. Its readers (resolve_image, the engine's
+    similarity reads) wrap the read in a profiling.wait, so that a CPU run,
+    whose host copy is the tensor itself, counts the same waits."""
 
     __slots__ = ("host", "event")
 
@@ -146,12 +151,13 @@ class _PendingImage:
 def _fetch_keyframes(u8: torch.Tensor) -> list:
     """Start the host copy of a chunk of uint8 keyframes [B, ...]: one
     _PendingImage per row, each also holding the chunk on its device."""
-    ready = None
-    if u8.is_cuda:
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(u8.device))
-    host = _fetch(u8)
-    return [_PendingImage(host, r, u8, ready) for r in range(u8.shape[0])]
+    with profiling.span("fetch", rows=u8.shape[0]):
+        ready = None
+        if u8.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(u8.device))
+        host = _fetch(u8)
+        return [_PendingImage(host, r, u8, ready) for r in range(u8.shape[0])]
 
 
 def resolve_image(im, batch_cache: dict) -> np.ndarray:
@@ -165,7 +171,8 @@ def resolve_image(im, batch_cache: dict) -> np.ndarray:
         return np.asarray(im)
     arr = batch_cache.get(id(im.batch))
     if arr is None:
-        arr = np.asarray(im.batch)
+        with profiling.wait("fetch"):
+            arr = np.asarray(im.batch)
         batch_cache[id(im.batch)] = arr
     return arr[im.row]
 
@@ -258,6 +265,9 @@ class BlendingEngine:
         self._queue_tail = None
         self.timer = PhaseTimer()
         self.last_report = TransitionReport()
+        # transitions begun so far (the last one's id) and its span tree
+        self._transitions = 0
+        self._trace: Optional[profiling.Trace] = None
         # the last movie's writer backend and settled JPEG quality (note_writer)
         self.last_writer_backend: Optional[str] = None
         self.last_jpeg_quality: Optional[int] = None
@@ -401,17 +411,17 @@ class BlendingEngine:
         cond = self._stack_conditionings([0.0, 1.0])
         g = torch.tensor([self._guidance_at(0.0), self._guidance_at(1.0)], dtype=torch.float32)
         with torch.no_grad():
-            _sync(self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g))
+            _sync(self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g), "benchmark")
             t0 = time.time()
             traj = self.dh.run_diffusion_batched(cond, lat0, idx_start=0, guidance_scale=g)
-            _sync(traj)
+            _sync(traj, "benchmark")
             sample = (time.time() - t0) / (2 * N)
             self._observe_unet_step(sample)
             self._dt_step_by_batch[2] = self._observe(self._dt_step_by_batch.get(2), sample)
-            _sync(self.dh.decode_to_pm1_batched(traj[-1]))
+            _sync(self.dh.decode_to_pm1_batched(traj[-1]), "benchmark")
             t0 = time.time()
             pm1 = self.dh.decode_to_pm1_batched(traj[-1])
-            _sync(pm1)
+            _sync(pm1, "benchmark")
             self.dt_vae = (time.time() - t0) / 2
         self.measure_sync_overhead(anchor=pm1)
 
@@ -423,12 +433,12 @@ class BlendingEngine:
         if anchor is None:
             anchor = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=self.dh.device)
         tiny = anchor[:1, :1, :1, :1] + 1.0
-        _sync(tiny)
+        _sync(tiny, "probe")
         best = None
         for i in range(max(1, reps)):
             t0 = time.time()
             tiny = anchor[:1, :1, :1, :1] + (2.0 + i)
-            _sync(tiny)
+            _sync(tiny, "probe")
             dt = time.time() - t0
             best = dt if best is None else min(best, dt)
         self.dt_sync = best
@@ -721,6 +731,7 @@ class BlendingEngine:
 
     # -------------------------------------------------------------- main run
 
+    @profiling.recording()
     def run_transition(self, recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
                        fixed_seeds: Optional[List[int]] = None) -> list:
         """Compute the keyframe transition; returns the uint8 [H,W,3] keyframes."""
@@ -730,6 +741,7 @@ class BlendingEngine:
         self._finalize_report()
         return self.tree_final_imgs
 
+    @profiling.recording()
     def run_transition_streaming(self, recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
                                  fixed_seeds: Optional[List[int]] = None, keyframe_format: str = "auto") -> list:
         """Dispatch the whole transition and return the keyframe HANDLES
@@ -759,8 +771,10 @@ class BlendingEngine:
         closing half of the run_transition_streaming contract. With
         sync_sims=False the pending handle goes to
         last_report.sims_pending (TransitionReport.resolve_sims lands it)
-        and lpips_gaps stays empty until then."""
-        self._finalize_report(sync_sims=sync_sims)
+        and lpips_gaps stays empty until then. The transition's span tree
+        ends here."""
+        with profiling.recording(self._trace):
+            self._finalize_report(sync_sims=sync_sims)
         return self.last_report
 
     def resolve_keyframes(self, batch_cache: Optional[dict] = None) -> list:
@@ -786,13 +800,12 @@ class BlendingEngine:
         # drain a previous streaming transition's deferred device tail
         # outside any phase timer, so the next denoise phase does not absorb it
         if self._queue_tail is not None:
-            np.asarray(self._queue_tail)
+            with profiling.wait("sims"):
+                np.asarray(self._queue_tail)
             self._queue_tail = None
 
         N = self.num_inference_steps
-        self._t_run0 = time.time()
-        self.timer = PhaseTimer()
-        self.last_report = TransitionReport(num_steps=N)
+        self._begin_transition(N)
         self._sims_pending = None
         self.dh.reset_noise_stream((int(self.seed1) * 1_000_003 + int(self.seed2)) & 0x7FFFFFFF)
 
@@ -842,6 +855,15 @@ class BlendingEngine:
         self.tree_similarities = [1.0] if self._predictive() else self._batched_similarities()
         self._run_levels(self.list_idx_injection, self.list_nmb_stems)
 
+    def _begin_transition(self, N: int) -> None:
+        """A new transition: its id, its span tree (recording on this thread
+        until the public call's profiling.recording block ends), its phase
+        timer and its report."""
+        self._transitions += 1
+        self._trace = profiling.Trace(self._transitions, carried=self.dh.carried_spans)
+        self.timer = PhaseTimer()
+        self.last_report = TransitionReport(num_steps=N, transition_id=self._transitions, traces=[self._trace])
+
     def _run_levels(self, list_idx_injection, list_nmb_stems, extended: bool = False) -> None:
         """Each level's stems in rounds of stem_batch (0: the whole level).
         The last round's similarities are report-only, so they are deferred;
@@ -850,19 +872,21 @@ class BlendingEngine:
         n_levels = len(list_idx_injection)
         for s_idx, (idx_injection, nmb_stems) in enumerate(zip(list_idx_injection, list_nmb_stems)):
             idx_injection, nmb_stems = int(idx_injection), int(nmb_stems)
-            t_lvl = time.time()
-            done = 0
-            for k in self._round_sizes(nmb_stems):
-                done += k
-                is_last = s_idx == n_levels - 1 and done >= nmb_stems
-                self._run_stem_round(k, idx_injection, defer_sims=is_last, predicted=predictive,
-                                     sync=(not predictive) or is_last)
+            with profiling.span("level", idx_injection=idx_injection, stems=nmb_stems) as lv:
+                done = 0
+                for k in self._round_sizes(nmb_stems):
+                    done += k
+                    is_last = s_idx == n_levels - 1 and done >= nmb_stems
+                    with profiling.span("round", idx_injection=idx_injection, stems=k):
+                        self._run_stem_round(k, idx_injection, defer_sims=is_last, predicted=predictive,
+                                             sync=(not predictive) or is_last)
             level = {"idx_injection": idx_injection, "stems": nmb_stems}
             if extended:
                 level["extended"] = True
-            level["wall_s"] = round(time.time() - t_lvl, 3)
+            level["wall_s"] = round(lv.host_s, 3)
             self.last_report.levels.append(level)
 
+    @profiling.recording()
     def extend_transition(self, list_idx_injection, list_nmb_stems) -> list:
         """Deepen the current tree with more stem levels; no existing
         trajectory is recomputed. Valid after run_transition; each new stem
@@ -881,12 +905,11 @@ class BlendingEngine:
         for idx in list_idx_injection:
             if not 1 <= idx < N:
                 raise ValueError(f"idx_injection {idx} outside [1, {N - 1}]")
-        self.timer = PhaseTimer()
-        self.last_report = TransitionReport(num_steps=N)
-        self._t_run0 = time.time()
+        self._begin_transition(N)
         # a previous run's deferred similarity pass lands before placement reads it
         if self._sims_pending is not None:
-            self.tree_similarities = np.asarray(self._sims_pending, np.float64).tolist()
+            with profiling.wait("sims"):
+                self.tree_similarities = np.asarray(self._sims_pending, np.float64).tolist()
             self._sims_pending = None
         if len(self.tree_similarities) != len(self.tree_fracts) - 1:
             self.tree_similarities = (
@@ -1243,7 +1266,7 @@ class BlendingEngine:
         deferred = False
         if self._sims_pending is not None:
             if sync_sims:
-                with self.timer.phase("similarity_sync"):
+                with self.timer.phase("similarity_sync"), profiling.wait("sims"):
                     self.tree_similarities = np.asarray(self._sims_pending, np.float64).tolist()
             else:
                 self.last_report.sims_pending = self._sims_pending
@@ -1257,7 +1280,9 @@ class BlendingEngine:
         if not deferred:
             self.last_report.lpips_gaps = [float(s) for s in self.tree_similarities]
         self.last_report.phases = self.timer.summary()
-        self.last_report.wall_s = time.time() - self._t_run0
+        if self._trace.root.end_ns is None:
+            self._trace.finish()
+            self.last_report.wall_s = self._trace.root.host_s
 
     def compute_latents1(self, return_image: bool = False):
         """First keyframe trajectory (single branch); with return_image its
@@ -1562,6 +1587,7 @@ class BlendingEngine:
 
         write_on_rank0(write)
 
+    @profiling.recording()
     def run_movie_transition(self, fp_movie: str, duration_transition: float, fps: int = 30,
                              recycle_img1: Optional[bool] = False, recycle_img2: Optional[bool] = False,
                              fixed_seeds: Optional[List[int]] = None) -> list:
@@ -1662,7 +1688,9 @@ class BlendingEngine:
         if len(self.tree_final_imgs) < 2:
             return []
         imgs = self.lpips._prep(np.stack([np.asarray(im) for im in self.tree_final_imgs]), self.dh.device)
-        return self._agreed(self.lpips.distance_batch(imgs[:-1], imgs[1:])).double().cpu().tolist()
+        d = self._agreed(self.lpips.distance_batch(imgs[:-1], imgs[1:]))
+        with profiling.wait("sims"):
+            return d.double().cpu().tolist()
 
     def _agreed(self, sims: torch.Tensor) -> torch.Tensor:
         """Gap similarities as every rank places stems from them: under a
@@ -1679,9 +1707,14 @@ class BlendingEngine:
         keyframes. Rank 0's under a mesh (_agreed)."""
         if len(self._imgs_dev) < 2:
             return None
-        return self._agreed(self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]), torch.stack(self._imgs_dev[1:])))
+        with profiling.span("similarity.pass", device=self.dh.device, rows=len(self._imgs_dev) - 1):
+            return self._agreed(self.lpips.distance_batch(torch.stack(self._imgs_dev[:-1]),
+                                                          torch.stack(self._imgs_dev[1:])))
 
     def _batched_similarities(self) -> list[float]:
         """All adjacent-keyframe distances, on the host."""
         d = self._dispatch_similarities()
-        return [] if d is None else d.double().cpu().tolist()
+        if d is None:
+            return []
+        with profiling.wait("sims"):
+            return d.double().cpu().tolist()

@@ -13,8 +13,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.utils import get_logger
 
 log = get_logger(__name__)
@@ -87,17 +87,19 @@ class MovieProject:
         )
 
 
-def _write_part(imgs: list, ms, target: int, errs: list):
+def _write_part(imgs: list, ms, target: int, errs: list, trace=None):
     """Resolve + lerp + append one transition's frames to the SHARED movie
     writer. Runs on a background thread in the overlapped chained pipeline:
     the encoder's launches and host copies interleave with the NEXT
-    transition's, and waits on the device release the GIL."""
+    transition's, and waits on the device release the GIL. Its spans land
+    in `trace`, the span tree of the transition it writes."""
     try:
         from latentblending_tpu_torch.engine.blending import resolve_image
         from latentblending_tpu_torch.video.writer import write_frames_interp
 
         batch_cache: dict = {}
-        write_frames_interp(ms, imgs, target, resolve=lambda im: resolve_image(im, batch_cache))
+        with profiling.recording(trace):
+            write_frames_interp(ms, imgs, target, resolve=lambda im: resolve_image(im, batch_cache))
         log.info(f"wrote {target} frames ({ms.nmb_frames} total)")
     except BaseException as e:  # re-raised on the main thread after join
         errs.append(e)
@@ -188,13 +190,14 @@ def run_multi_transition(
                 pending.join()  # depth-1 pipeline: one part in flight
                 if errs:
                     raise errs[0]
+            trace = be.last_report.traces[-1]
             if writes and overlap_write:
                 pending = threading.Thread(
-                    target=_write_part, args=(imgs, ms, target, errs), daemon=True
+                    target=_write_part, args=(imgs, ms, target, errs, trace), daemon=True
                 )
                 pending.start()
             elif writes:
-                _write_part(imgs, ms, target, errs)
+                _write_part(imgs, ms, target, errs, trace)
                 if errs:
                     raise errs[0]
             # sims are report-only and sit at the END of this part's device
@@ -216,22 +219,16 @@ def run_multi_transition(
     # per-transition MFU/phase math over a chained run was 3× off when it
     # read only the final part's report
     if part_reports:
-        from latentblending_tpu_torch.profiling import TransitionReport
-
         # land the deferred per-part similarity handles (device work is
-        # long done — this is host copies only) and record the real
-        # blocked wall as the movie's single lpips_sync phase
-        t_sync0 = time.time()
+        # long done — this is host copies only), each part's blocked wall
+        # a span of the movie's lpips_sync phase
+        timer = profiling.PhaseTimer()
         for rep in part_reports:
-            rep.resolve_sims()
-        dt_sync = round(time.time() - t_sync0, 4)
+            with timer.phase("lpips_sync"):
+                rep.resolve_sims()
         be.tree_similarities = list(part_reports[-1].lpips_gaps)
-        be.last_report = TransitionReport.merged(part_reports)
-        be.last_report.phases["lpips_sync"] = {
-            "total_s": dt_sync,
-            "count": len(part_reports),
-            "mean_s": round(dt_sync / len(part_reports), 4),
-        }
+        be.last_report = profiling.TransitionReport.merged(part_reports)
+        be.last_report.phases.update(timer.summary())
 
     def finalize():
         ms.finalize()

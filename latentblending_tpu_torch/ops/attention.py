@@ -43,21 +43,18 @@ from __future__ import annotations
 
 import torch
 
-# kernel launches, per site (a CPU call launches nothing)
-launches_self = 0  # K2: d=64 bf16
-launches_self_f32 = 0  # K2: d=64 f32
-launches_vae = 0  # K3: d=512 f32
-launches_vae_bf16 = 0  # K3: d=512 bf16
+from latentblending_tpu_torch import profiling
 
-# (head dim, dtype) -> (C entry point, counter name, the sequence multiple
+# (head dim, dtype) -> (C entry point, its launch counter in the profiling
+# registry (a CPU call launches nothing), the sequence multiple
 # its tiles need: K2 bf16 64-row query and 128-row key tiles, K2 f32
 # 128-row query and 64-row key tiles, K3 f32 64-row query and 32-row key
 # tiles, K3 bf16 64-row query and key tiles)
 _KERNELS = {
-    (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "launches_self", 128),
-    (64, torch.float32): ("lb_attention_fwd_d64_f32", "launches_self_f32", 128),
-    (512, torch.float32): ("lb_attention_fwd_d512_f32", "launches_vae", 64),
-    (512, torch.bfloat16): ("lb_attention_fwd_d512_bf16", "launches_vae_bf16", 64),
+    (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "K2", 128),
+    (64, torch.float32): ("lb_attention_fwd_d64_f32", "K2_f32", 128),
+    (512, torch.float32): ("lb_attention_fwd_d512_f32", "K3", 64),
+    (512, torch.bfloat16): ("lb_attention_fwd_d512_bf16", "K3_bf16", 64),
 }
 
 
@@ -103,5 +100,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, float(D ** -0.5), stream
         )
     _build.check(rc, name)
-    globals()[counter] += 1
+    profiling.count(counter)
     return out

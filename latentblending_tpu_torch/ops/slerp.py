@@ -30,12 +30,9 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.ops import _build
 from latentblending_tpu_torch.ops.interp import interpolate_spherical_batched
-
-# kernel launches made by slerp_rows / slerp_tree_step (a CPU call launches nothing)
-launches = 0
-launches_tree_step = 0
 
 _ROWS = {torch.float32: "lb_slerp_rows_f32", torch.bfloat16: "lb_slerp_rows_bf16"}
 _TREE = {torch.float32: "lb_slerp_tree_step_f32", torch.bfloat16: "lb_slerp_tree_step_bf16"}
@@ -86,7 +83,8 @@ def _check_index(key: str, idx: torch.Tensor, rows: int) -> None:
         raise ValueError(f"slerp_tree_step: {key} must be int64 [{rows}], got {idx.dtype} {tuple(idx.shape)}")
     if _INDEX_CHECKED.get(idx) == (idx._version, rows):
         return
-    lo, hi = (int(v) for v in torch.aminmax(idx))
+    with profiling.wait("index"):
+        lo, hi = (int(v) for v in torch.aminmax(idx))
     if lo < 0 or hi >= rows:
         raise ValueError(f"slerp_tree_step: {key} holds rows {lo}..{hi}, outside [0, {rows})")
     _INDEX_CHECKED[idx] = (idx._version, rows)
@@ -106,10 +104,10 @@ def host_checked_index(idx, rows: int, device) -> torch.Tensor:
 
 
 def slerp_rows(a: torch.Tensor, b: torch.Tensor, fract: torch.Tensor) -> torch.Tensor:
-    """Per-row slerp of a, b [B, ...] with fractions fract [B] (f32 math)."""
+    """Per-row slerp of a, b [B, ...] with fractions fract [B] (f32 math);
+    a CUDA call counts one launch in the profiling registry's K1_rows."""
     if not a.is_cuda:
         return slerp_rows_reference(a, b, fract)
-    global launches
     _check_cuda("slerp_rows", a, a=a, b=b, fract=fract)
     if b.dtype != a.dtype or b.shape != a.shape:
         raise ValueError(f"slerp_rows: a {tuple(a.shape)} {a.dtype} vs b {tuple(b.shape)} {b.dtype}")
@@ -119,7 +117,7 @@ def slerp_rows(a: torch.Tensor, b: torch.Tensor, fract: torch.Tensor) -> torch.T
     if a.numel() == 0:
         return out
     _build.launch(_ROWS[a.dtype], a, b, fract, out, rows, a.numel() // rows)
-    launches += 1
+    profiling.count("K1_rows")
     return out
 
 
@@ -131,12 +129,12 @@ def slerp_tree_step(latents: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, p
     parent_fract[r]) rounded to latents' dtype, and the result row
     slerp(latents[r], m, mix_coeff[r]). p1, p2 int64 [B]; parent_fract,
     mix_coeff f32 [B]; window latents.shape[1:] with win_mask bool [B], or
-    both None. Returns a new tensor (other rows read latents[r] as a parent)."""
+    both None. Returns a new tensor (other rows read latents[r] as a parent).
+    A CUDA call counts one launch in the profiling registry's K1_tree."""
     if (window is None) != (win_mask is None):
         raise ValueError("slerp_tree_step: window and win_mask go together")
     if not latents.is_cuda:
         return slerp_tree_step_reference(latents, p1, p2, parent_fract, mix_coeff, window, win_mask)
-    global launches_tree_step
     extra = {} if window is None else {"window": window, "win_mask": win_mask}
     _check_cuda("slerp_tree_step", latents, latents=latents, p1=p1, p2=p2, parent_fract=parent_fract,
                 mix_coeff=mix_coeff, **extra)
@@ -157,5 +155,5 @@ def slerp_tree_step(latents: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, p
     _check_index("p2", p2, rows)
     _build.launch(_TREE[latents.dtype], latents, p1, p2, parent_fract, mix_coeff, window, win_mask,
             out, rows, latents.numel() // rows)
-    launches_tree_step += 1
+    profiling.count("K1_tree")
     return out

@@ -29,6 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.ops.scheduler import (
     dpmpp_2m_step,
     euler_ancestral_step,
@@ -90,17 +91,20 @@ def _fold_cfg(plan: DenoisePlan, cond: Conditioning):
 
 def _eps_and_step(plan, unet_apply, pe, pool, tids, guidance_scale,
                   latents, old_denoised, sigma, sigma_prev, sigma_next, t, noise, use2):
-    """One UNet eval (CFG-folded) and one solver update."""
+    """One UNet eval (CFG-folded; the tracer's `unet` span) and one solver
+    update."""
     lmi = scale_model_input(latents, sigma)
     if plan.use_cfg:
-        eps2 = unet_apply(torch.cat([lmi, lmi], dim=0), t, pe, pool, tids)
+        with profiling.span("unet"):
+            eps2 = unet_apply(torch.cat([lmi, lmi], dim=0), t, pe, pool, tids)
         eps_u, eps_t = eps2.float().chunk(2, dim=0)
         g = guidance_scale.reshape(-1, 1, 1, 1).float()
         eps = eps_u + g * (eps_t - eps_u)
         if plan.guidance_rescale > 0.0:
             eps = _rescale_noise_cfg(eps, eps_t, plan.guidance_rescale)
     else:
-        eps = unet_apply(lmi, t, pe, pool, tids)
+        with profiling.span("unet"):
+            eps = unet_apply(lmi, t, pe, pool, tids)
     if plan.sched == "euler_ancestral":
         return euler_ancestral_step(latents, eps, sigma, sigma_next, noise), old_denoised
     if plan.sched == "dpmpp_2m":
@@ -156,16 +160,17 @@ def denoise_scan(
     old_denoised = torch.zeros(latents.shape, dtype=torch.float32, device=dev)
     traj = []
     for j in range(M):
-        # crossfeed slerp — kernel K1 on the GPU
-        latents = slerp_rows(latents, mix_window[j], mix_coeffs[j].contiguous())
-        z = None
-        if plan.sched == "euler_ancestral":
-            z = noise[j] if noise is not None else torch.randn(
-                latents.shape, generator=generator, device=dev, dtype=torch.float32)
-        latents, old_denoised = _eps_and_step(
-            plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
-            sig_w[j], sigp_w[j], sign_w[j], t_w[j], z, bool(use2_w[j]),
-        )
+        with profiling.span("step", device=dev, step=plan.idx_start + j, rows=latents.shape[0]):
+            # crossfeed slerp — kernel K1 on the GPU
+            latents = slerp_rows(latents, mix_window[j], mix_coeffs[j].contiguous())
+            z = None
+            if plan.sched == "euler_ancestral":
+                z = noise[j] if noise is not None else torch.randn(
+                    latents.shape, generator=generator, device=dev, dtype=torch.float32)
+            latents, old_denoised = _eps_and_step(
+                plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
+                sig_w[j], sigp_w[j], sign_w[j], t_w[j], z, bool(use2_w[j]),
+            )
         traj.append(latents)
     return torch.stack(traj, dim=0)
 
@@ -226,15 +231,16 @@ def denoise_scan_tree(
     old_denoised = torch.zeros(latents.shape, dtype=torch.float32, device=dev)
     traj = []
     for j in range(M):
-        # live parental mix, then the crossfeed slerp toward it — one launch
-        # of kernel K1's tree step on the GPU
-        latents = slerp_tree_step(latents, p1, p2, parent_fract, mix_coeffs[j].contiguous(),
-                                  None if win_steps is None else win_steps[j], wmask)
-        latents, old_denoised = _eps_and_step(
-            plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
-            sig_w[j], sigp_w[j], sign_w[j], t_w[j], None if noise is None else noise[j],
-            use2_mat[j].reshape(-1, 1, 1, 1),
-        )
+        with profiling.span("step", device=dev, step=plan.idx_start + j, rows=B):
+            # live parental mix, then the crossfeed slerp toward it — one
+            # launch of kernel K1's tree step on the GPU
+            latents = slerp_tree_step(latents, p1, p2, parent_fract, mix_coeffs[j].contiguous(),
+                                      None if win_steps is None else win_steps[j], wmask)
+            latents, old_denoised = _eps_and_step(
+                plan, unet_apply, pe, pool, tids, guidance_scale, latents, old_denoised,
+                sig_w[j], sigp_w[j], sign_w[j], t_w[j], None if noise is None else noise[j],
+                use2_mat[j].reshape(-1, 1, 1, 1),
+            )
         traj.append(latents)
     return torch.stack(traj, dim=0)
 
@@ -329,11 +335,13 @@ def denoise_scan_tree_seg(
         pe, pool, tids = _fold_cfg(plan, _cond_prefix(cond, Bs))
         ys = []
         for j, i in enumerate(range(i0, i1)):
-            latents = slerp_tree_step(latents, p1, p2, pf, mc[j], None if win_steps is None else win_steps[i], wm)
-            latents, old_denoised = _eps_and_step(
-                plan, unet_apply, pe, pool, tids, g, latents, old_denoised,
-                sig_w[i], sigp_w[i], sign_w[i], t_w[i], None if noise is None else noise[i], use2[j],
-            )
+            with profiling.span("step", device=dev, step=i, rows=Bs):
+                latents = slerp_tree_step(latents, p1, p2, pf, mc[j], None if win_steps is None else win_steps[i],
+                                          wm)
+                latents, old_denoised = _eps_and_step(
+                    plan, unet_apply, pe, pool, tids, g, latents, old_denoised,
+                    sig_w[i], sigp_w[i], sign_w[i], t_w[i], None if noise is None else noise[i], use2[j],
+                )
             ys.append(latents)
         trajs.append(torch.stack(ys, dim=0) if ys else latents.new_empty((0,) + tuple(latents.shape)))
     return tuple(trajs)

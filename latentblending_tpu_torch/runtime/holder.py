@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.models import configs as C
 from latentblending_tpu_torch.models.clip import CLIPTextEncoder
 from latentblending_tpu_torch.models.layers import cast_keep_norms_f32, init_like_jax_
@@ -170,6 +171,8 @@ class SDXLHolder:
         # denoise signatures already run (see _note_warm)
         self._warm_keys: set = set()
         self.last_run_was_warm = False
+        # embed spans taken while no transition was open, for the next one
+        self.carried_spans: list = []
         self.num_inference_steps = 4 if self.is_sdxl_turbo else 30
         self.schedule: SchedulerState = make_schedule(self.spec.scheduler, self.num_inference_steps)
         self.set_dimensions(self.spec.default_size)
@@ -335,14 +338,19 @@ class SDXLHolder:
     @torch.no_grad()
     def get_text_embedding(self, prompt: str):
         """(prompt_embeds, negative_prompt_embeds, pooled, negative_pooled),
-        each with batch 1, in the holder's dtype."""
-        ids1 = torch.as_tensor(self.tokenizer1([prompt, self.negative_prompt]), dtype=torch.long, device=self.device)
-        ids2 = torch.as_tensor(self.tokenizer2([prompt, self.negative_prompt]), dtype=torch.long, device=self.device)
-        pen1, _, _ = self.clip1(ids1)
-        pen2, _, pooled = self.clip2(ids2)
-        embeds = torch.cat([pen1, pen2], dim=-1)
-        return (embeds[0:1].to(self.dtype), embeds[1:2].to(self.dtype),
-                pooled[0:1].to(self.dtype), pooled[1:2].to(self.dtype))
+        each with batch 1, in the holder's dtype: the tracer's `embed`
+        span, kept in carried_spans for the next transition when none is
+        open."""
+        with profiling.span("embed", device=self.device, carry=self.carried_spans):
+            ids1 = torch.as_tensor(self.tokenizer1([prompt, self.negative_prompt]), dtype=torch.long,
+                                   device=self.device)
+            ids2 = torch.as_tensor(self.tokenizer2([prompt, self.negative_prompt]), dtype=torch.long,
+                                   device=self.device)
+            pen1, _, _ = self.clip1(ids1)
+            pen2, _, pooled = self.clip2(ids2)
+            embeds = torch.cat([pen1, pen2], dim=-1)
+            return (embeds[0:1].to(self.dtype), embeds[1:2].to(self.dtype),
+                    pooled[0:1].to(self.dtype), pooled[1:2].to(self.dtype))
 
     # ----------------------------------------------------------- noise path
 
@@ -383,11 +391,12 @@ class SDXLHolder:
         chunks of `decode_chunk` so full-resolution activations stay bounded."""
         outs = []
         c = max(1, self.decode_chunk)
-        for i in range(0, latents.shape[0], c):
-            z = latents[i : i + c].float().permute(0, 3, 1, 2) / self.spec.vae.scaling_factor
-            img = self.vae.decode(z.contiguous()).permute(0, 2, 3, 1)
-            outs.append(torch.clamp(img, -1.0, 1.0))
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        with profiling.span("vae.decode", device=latents.device, rows=latents.shape[0]):
+            for i in range(0, latents.shape[0], c):
+                z = latents[i : i + c].float().permute(0, 3, 1, 2) / self.spec.vae.scaling_factor
+                img = self.vae.decode(z.contiguous()).permute(0, 2, 3, 1)
+                outs.append(torch.clamp(img, -1.0, 1.0))
+            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     @staticmethod
     def to_uint8_device(imgs_pm1: torch.Tensor) -> torch.Tensor:
@@ -725,12 +734,14 @@ class SDXLHolder:
         lat = self.get_noise(0)
         idx = self.num_inference_steps - 1
         self.run_diffusion(te, lat, idx_start=idx)
-        if lat.is_cuda:
-            torch.cuda.synchronize(lat.device)
+        with profiling.wait("benchmark"):
+            if lat.is_cuda:
+                torch.cuda.synchronize(lat.device)
         t0 = time.time()
         out = self.run_diffusion(te, lat, idx_start=idx)
-        if lat.is_cuda:
-            torch.cuda.synchronize(lat.device)
+        with profiling.wait("benchmark"):
+            if lat.is_cuda:
+                torch.cuda.synchronize(lat.device)
         dt_unet_step = time.time() - t0
         self.latent2image(out[-1])  # a host copy: it waits for the decode
         t0 = time.time()

@@ -84,10 +84,9 @@ def main(argv=None) -> int:
         cold = {"transition": timed(lambda: be.run_transition(fixed_seeds=seeds)), "movie": timed(movie)}
         for _ in range(args.reps):
             walls["transition"].append(timed(lambda: be.run_transition(fixed_seeds=seeds)))
-            jpeg.launches_fdct = jpeg.launches_lerp = jpeg.launches_huffman = 0
             walls["movie"].append(timed(movie))
             walls["movie_write"].append(be.last_report.phases["movie_write"]["total_s"])
-        calls = {"J1": jpeg.launches_fdct, "J2": jpeg.launches_lerp, "J3": jpeg.launches_huffman}
+        calls = {k: be.last_report.counters.get(k, 0) for k in ("J1", "J2", "J3")}
         size = os.path.getsize(fp)
     medians = {k: statistics.median(v) for k, v in walls.items()}
     medians["movie - transition"] = medians["movie"] - medians["transition"]

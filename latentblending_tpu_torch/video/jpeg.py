@@ -46,19 +46,14 @@ import struct
 import numpy as np
 import torch
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.ops import _build
 
-# one count per wrapper call that launches its kernels (a J1 call codes B
-# frames; a J2 call lerps F fractions; a J3 call codes F frames in eight
-# launches and one copy); launches_fdct_rgb counts J1's launches from RGB
-# frames apart (they are in launches_fdct too), launches_fdct_frames and
-# launches_huffman_frames the frames J1's and J3's calls coded
-launches_fdct = 0
-launches_fdct_rgb = 0
-launches_fdct_frames = 0
-launches_lerp = 0
-launches_huffman = 0
-launches_huffman_frames = 0
+# The wrappers count in the profiling registry one launch per call that
+# launches its kernels (a J1 call codes B frames; a J2 call lerps F
+# fractions; a J3 call codes F frames in eight launches and one copy): J1,
+# J2, J3; J1_rgb counts J1's calls on RGB frames apart (they are in J1
+# too), J1_frames and J3_frames the frames J1's and J3's calls coded.
 
 # jpeg_natural_order: natural (row-major) index of the k-th zigzag coefficient
 NATURAL_ORDER = np.array([
@@ -450,7 +445,6 @@ def fdct_quant(frames: torch.Tensor, quality: int, fmt: str = "i420") -> torch.T
     B frames in one launch."""
     if not frames.is_cuda:
         return fdct_quant_reference(frames, quality, fmt)
-    global launches_fdct, launches_fdct_rgb, launches_fdct_frames
     h, w = _check_frames("fdct_quant", frames, fmt)
     _check_cuda("fdct_quant", frames)
     B = frames.shape[0]
@@ -459,9 +453,9 @@ def fdct_quant(frames: torch.Tensor, quality: int, fmt: str = "i420") -> torch.T
         return out
     _build.launch("lb_jpeg_fdct_quant", frames, _device_table("fdct", frames.device, quality), out,
                   B, h, w, _FMT[fmt])
-    launches_fdct += 1
-    launches_fdct_rgb += fmt == "rgb"
-    launches_fdct_frames += B
+    profiling.count("J1")
+    profiling.count("J1_rgb", fmt == "rgb")
+    profiling.count("J1_frames", B)
     return out
 
 
@@ -473,7 +467,6 @@ def coef_lerp_batch(a: torch.Tensor, b: torch.Tensor, ts) -> torch.Tensor:
     ts = np.asarray([float(t) for t in ts], np.float32)
     if not a.is_cuda:
         return coef_lerp_batch_reference(a, b, ts)
-    global launches_lerp
     _check_cuda("coef_lerp", a, b)
     if a.numel() % 8 or (a.data_ptr() | b.data_ptr()) % 16:
         raise ValueError("coef_lerp: the kernel reads 16-byte vectors: a and b need a multiple of 8 "
@@ -481,7 +474,7 @@ def coef_lerp_batch(a: torch.Tensor, b: torch.Tensor, ts) -> torch.Tensor:
     out = torch.empty((len(ts), *a.shape), dtype=torch.int16, device=a.device)
     if out.numel():
         _build.launch("lb_jpeg_coef_lerp", a, b, out, a.numel(), ts.ctypes.data, len(ts))
-        launches_lerp += 1
+        profiling.count("J2")
     return out
 
 
@@ -525,7 +518,6 @@ def _huffman_code(coef: torch.Tensor, tables: torch.Tensor, off: torch.Tensor, p
     host's copy of `plan_dev`. The kernels place every block by `plan_dev`,
     so `plan` must be that of the same coefficients: a smaller one makes
     them write past the buffers' ends."""
-    global launches_huffman, launches_huffman_frames
     dev, (F, n, _) = coef.device, coef.shape
     nbytes, nwords, tiles = (int(x) for x in plan[:, F])
     words = torch.empty(nwords, dtype=torch.int32, device=dev)
@@ -535,8 +527,8 @@ def _huffman_code(coef: torch.Tensor, tables: torch.Tensor, off: torch.Tensor, p
     out = torch.empty(2 * nbytes + 16, dtype=torch.uint8, device=dev)  # every byte a 0xFF at most
     _build.launch("lb_jpeg_huff_code", coef, tables, off, plan_dev, words, nwords, tile_ff, tile_pre, stuffed, out,
                   n, F, tiles)
-    launches_huffman += 1
-    launches_huffman_frames += F
+    profiling.count("J3")
+    profiling.count("J3_frames", F)
     return out, stuffed
 
 
@@ -549,7 +541,8 @@ def huffman_scan_device(coef: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
     _check_coef_batch("huffman_scan_device", coef)
     _check_cuda("huffman_scan_device", coef)
     counted = _huffman_count(coef)
-    plan = counted[2].cpu()
+    with profiling.wait("jpeg"):
+        plan = counted[2].cpu()
     return (*_huffman_code(coef, *counted, plan), plan)
 
 
@@ -583,7 +576,8 @@ def huffman_scan_batch(coef: torch.Tensor) -> list[bytes]:
     _build.launch("lb_jpeg_huff_copy", out, stuffed, F, out.numel(), host.data_ptr(), host_off.data_ptr())
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(coef.device))
-    done.synchronize()
+    with profiling.wait("jpeg"):
+        done.synchronize()
     data, offs = host.numpy(), host_off.tolist()
     return [data[offs[f]:offs[f + 1]].tobytes() for f in range(F)]
 

@@ -23,6 +23,8 @@ import tempfile
 import numpy as np
 import torch
 
+from latentblending_tpu_torch import profiling
+
 from .mjpeg_mp4 import MjpegMp4Writer, as_rgb_frame
 
 _BACKENDS = ("auto", "mjpeg", "ffmpeg")
@@ -115,16 +117,18 @@ class MovieSaver:
         self.nmb_frames += 1
 
     def finalize(self):
-        if self._mjpeg is not None:
-            self.jpeg_quality = self._mjpeg.quality
-            self._mjpeg.finalize()
-            self._mjpeg = None
-        elif self._proc is not None:
-            self._proc.stdin.close()
-            rc = self._proc.wait()
-            self._proc = None
-            if rc != 0:
-                raise RuntimeError(f"ffmpeg exited with code {rc} for {self.fp_movie}")
+        """Close the movie (the tracer's `finalize` span)."""
+        with profiling.span("finalize"):
+            if self._mjpeg is not None:
+                self.jpeg_quality = self._mjpeg.quality
+                self._mjpeg.finalize()
+                self._mjpeg = None
+            elif self._proc is not None:
+                self._proc.stdin.close()
+                rc = self._proc.wait()
+                self._proc = None
+                if rc != 0:
+                    raise RuntimeError(f"ffmpeg exited with code {rc} for {self.fp_movie}")
         if self.nmb_frames > 0 and not (os.path.isfile(self.fp_movie) and os.path.getsize(self.fp_movie) > 0):
             raise RuntimeError(f"movie file {self.fp_movie} was not written")
 
@@ -255,8 +259,9 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
                                             per_call):
                 if tuple(batch.shape[1:3]) != (h, w):
                     raise ValueError(f"frame shape {tuple(batch.shape[1:3])} != movie shape {(h, w)}")
-                for jpg in mj.encode_frames(batch):
-                    ms.write_encoded(jpg)
+                with profiling.span("encode", frames=batch.shape[0]):
+                    for jpg in mj.encode_frames(batch):
+                        ms.write_encoded(jpg)
         return
 
     ms.used_coef_lerp = True
@@ -271,23 +276,25 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
         """Keyframe i's chunk batch, its row and format, once the writer's
         stream waits for the batch (and the allocator keeps it for that
         stream)."""
-        batch, row, ready = rows[i]
-        fmt = "i420" if batch.ndim == 3 else "rgb"
-        check_hw(i420_hw(batch[0]) if fmt == "i420" else batch.shape[1:3])
-        if ready is not None:
-            stream = torch.cuda.current_stream(batch.device)
-            stream.wait_event(ready)
-            batch.record_stream(stream)
-        return batch, row, fmt
+        with profiling.span("fetch", keyframe=i):
+            batch, row, ready = rows[i]
+            fmt = "i420" if batch.ndim == 3 else "rgb"
+            check_hw(i420_hw(batch[0]) if fmt == "i420" else batch.shape[1:3])
+            if ready is not None:
+                stream = torch.cuda.current_stream(batch.device)
+                stream.wait_event(ready)
+                batch.record_stream(stream)
+            return batch, row, fmt
 
     def keyframe(i: int) -> tuple[torch.Tensor, str]:
         """Keyframe i alone on the writer's device, and its format."""
         if rows[i] is not None:
             batch, row, fmt = device_batch(i)
             return batch[row], fmt
-        a = np.ascontiguousarray(np.asarray(resolve(handles[i])), dtype=np.uint8)
-        check_hw(i420_hw(a) if is_i420(a) else a.shape[:2])
-        return torch.from_numpy(a).to(mj.device), ("i420" if is_i420(a) else "rgb")
+        with profiling.span("fetch", keyframe=i):
+            a = np.ascontiguousarray(np.asarray(resolve(handles[i])), dtype=np.uint8)
+            check_hw(i420_hw(a) if is_i420(a) else a.shape[:2])
+            return torch.from_numpy(a).to(mj.device), ("i420" if is_i420(a) else "rgb")
 
     def coefs(i: int) -> torch.Tensor:
         """Keyframe i's coefficients at the movie's quality: its row of one
@@ -302,30 +309,32 @@ def write_frames_interp(ms: MovieSaver, handles: list, nmb_frames_target: int,
 
     counts = frame_insert_counts(len(handles), nmb_frames_target)
     with mj.encoding():
-        if mj._q_settled:
-            ccur = coefs(0)
-            jcur = jpeg.encode_coefs(ccur, h, w, mj.quality)
-        else:
-            # the first keyframe settles the movie's quality (calibrate_quality,
-            # a J1 and a J3 call a probe, on it alone), so every sample shares
-            # its quant tables
-            frame, fmt = keyframe(0)
-            probes: dict = {}
+        with profiling.span("encode", frames=1):
+            if mj._q_settled:
+                ccur = coefs(0)
+                jcur = jpeg.encode_coefs(ccur, h, w, mj.quality)
+            else:
+                # the first keyframe settles the movie's quality
+                # (calibrate_quality, a J1 and a J3 call a probe, on it
+                # alone), so every sample shares its quant tables
+                frame, fmt = keyframe(0)
+                probes: dict = {}
 
-            def at(q: int) -> bytes:
-                probes[q] = jpeg.fdct_quant(frame[None].contiguous(), q, fmt)[0]
-                return jpeg.encode_coefs(probes[q], h, w, q)
+                def at(q: int) -> bytes:
+                    probes[q] = jpeg.fdct_quant(frame[None].contiguous(), q, fmt)[0]
+                    return jpeg.encode_coefs(probes[q], h, w, q)
 
-            jcur = mj.calibrate_quality(at)
-            ccur = probes[mj.quality]
-        ms.write_encoded(jcur)
+                jcur = mj.calibrate_quality(at)
+                ccur = probes[mj.quality]
+            ms.write_encoded(jcur)
         for i in range(len(handles) - 1):
-            cnxt = coefs(i + 1)
-            # the gap's in-between frames, then at t = 1 the next keyframe's
-            # sample: one J2 and one J3 call
-            gap = jpeg.CoefFrames(ccur, cnxt, h, w, mj.quality)
-            for jpg in gap.lerp_many(np.linspace(0, 1, counts[i] + 2)[1:]):
-                ms.write_encoded(jpg)
+            with profiling.span("encode", gap=i, frames=counts[i] + 1):
+                cnxt = coefs(i + 1)
+                # the gap's in-between frames, then at t = 1 the next
+                # keyframe's sample: one J2 and one J3 call
+                gap = jpeg.CoefFrames(ccur, cnxt, h, w, mj.quality)
+                for jpg in gap.lerp_many(np.linspace(0, 1, counts[i] + 2)[1:]):
+                    ms.write_encoded(jpg)
             ccur = cnxt
 
 

@@ -16,11 +16,13 @@ package's host modules.
   the port's decoder, yml_load / yml_save to the PyYAML-free ones.
 - The copied host modules equal their originals: configs, schedules,
   utils, video/i420 and engine/config (EngineConfig) byte for byte; the tokenizer (its `regex` import moved inside the
-  BPE path) and profiling (without the jax.profiler hook) by behaviour.
+  BPE path) by behaviour. The port's profiling is its own tracer, but
+  PhaseTimer and TransitionReport behave as the JAX package's: the same
+  phases give the same summary, the same reports the same merged report
+  (and it has no jax.profiler hook).
 - chip_smoke.py refuses to run without a CUDA device, and from a
   directory that holds nothing else of the repo.
 """
-import inspect
 import os
 import shutil
 import subprocess
@@ -48,9 +50,41 @@ def test_copied_modules_are_identical(rel):
     assert (TPKG / rel).read_bytes() == (JPKG / rel).read_bytes()
 
 
-def test_profiling_copy_matches():
-    for name in ("PhaseTimer", "TransitionReport"):
-        assert inspect.getsource(getattr(tprof, name)) == inspect.getsource(getattr(jprof, name))
+def test_profiling_copy_matches(monkeypatch):
+    """The same phase sequence, on one scripted clock, gives the same
+    summary() in both packages; the same part reports (one with a deferred
+    similarity handle) merge into the same totals."""
+    import time
+
+    def run_phases(prof):
+        ticks = iter([0.0, 0.5, 0.5, 0.75, 1.0, 3.0, 3.0, 3.125])
+        clock = lambda: next(ticks)  # noqa: E731
+        monkeypatch.setattr(time, "perf_counter", clock)
+        monkeypatch.setattr(time, "perf_counter_ns", lambda: round(clock() * 1e9))
+        timer = prof.PhaseTimer()
+        for name in ("denoise", "vae_decode", "denoise", "movie_write"):
+            with timer.phase(name):
+                pass
+        monkeypatch.undo()
+        return timer.summary()
+
+    assert run_phases(tprof) == run_phases(jprof) == {
+        "denoise": {"total_s": 2.5, "count": 2, "mean_s": 1.25},
+        "movie_write": {"total_s": 0.125, "count": 1, "mean_s": 0.125},
+        "vae_decode": {"total_s": 0.25, "count": 1, "mean_s": 0.25}}
+
+    def merged(prof):
+        r1 = prof.TransitionReport(num_keyframes=5, num_steps=4, wall_s=1.0, levels=[{"stems": 3}])
+        r1.phases = {"denoise": {"total_s": 0.5, "count": 2, "mean_s": 0.25}}
+        r1.sims_pending = np.asarray([0.25, 0.5, 0.125, 1.0])
+        r2 = prof.TransitionReport(num_keyframes=5, num_steps=4, wall_s=2.0, lpips_gaps=[0.5] * 4)
+        r2.phases = {"denoise": {"total_s": 1.5, "count": 2, "mean_s": 0.75},
+                     "movie_write": {"total_s": 0.25, "count": 1, "mean_s": 0.25}}
+        out = prof.TransitionReport.merged([r1, r2]).as_dict()
+        return {k: out[k] for k in ("num_keyframes", "num_steps", "wall_s", "levels", "lpips_gaps", "phases")}
+
+    assert merged(tprof) == merged(jprof)
+    assert merged(tprof)["phases"]["denoise"] == {"total_s": 2.0, "count": 4, "mean_s": 0.5}
     assert not hasattr(tprof, "trace")
 
 

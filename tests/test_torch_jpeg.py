@@ -45,6 +45,7 @@ import torch
 from latentblending_tpu.video._jpeg_lerp import JpegPair
 from latentblending_tpu.video._jpeg_lerp import encode_i420 as jax_encode_i420
 from latentblending_tpu.video.i420 import rgb_to_i420
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.video import jpeg
 from tests.test_torch_jpeg_kernel_source import J1_SIZES, j1_frames
 
@@ -600,21 +601,21 @@ def test_jpeg_kernels_match_plain_versions_on_gpu():
     for (h, w), fmt in [((512, 512), "i420"), ((512, 512), "rgb"), ((120, 116), "i420"), ((50, 70), "rgb")]:
         shape = (2, h * 3 // 2, w) if fmt == "i420" else (2, h, w, 3)
         frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
-        n = jpeg.launches_fdct
+        n = profiling.counter("J1")
         got = jpeg.fdct_quant(frames, 90, fmt)
-        assert jpeg.launches_fdct == n + 1
+        assert profiling.counter("J1") == n + 1
         assert torch.equal(got, jpeg.fdct_quant_reference(frames, 90, fmt)), (h, w, fmt)
         assert jpeg.huffman_scan(got[1]) == jpeg.huffman_scan_reference(got[1]), (h, w, fmt)
-        n, nf = jpeg.launches_huffman, jpeg.launches_huffman_frames
+        n, nf = profiling.counter("J3"), profiling.counter("J3_frames")
         assert jpeg.huffman_scan_batch(got) == [jpeg.huffman_scan_reference(c) for c in got], (h, w, fmt)
-        assert (jpeg.launches_huffman, jpeg.launches_huffman_frames) == (n + 1, nf + 2)
+        assert (profiling.counter("J3"), profiling.counter("J3_frames")) == (n + 1, nf + 2)
     a, b = got[0], got[1]
     for t in (0.25, 0.5, 1 / 3):
         assert torch.equal(jpeg.coef_lerp(a, b, t), jpeg.coef_lerp_reference(a, b, t)), t
     ts = [float(t) for t in np.linspace(0, 1, 42)[1:-1]]  # more fractions than one launch takes
-    n = jpeg.launches_lerp
+    n = profiling.counter("J2")
     assert torch.equal(jpeg.coef_lerp_batch(a, b, ts), jpeg.coef_lerp_batch_reference(a, b, ts))
-    assert jpeg.launches_lerp == n + 1
+    assert profiling.counter("J2") == n + 1
     for x in (a.flatten()[1:9], a.flatten()[:12]):  # misaligned; not a multiple of 8
         with pytest.raises(ValueError, match="16-byte"):
             jpeg.coef_lerp_batch(x, x, [0.5])
@@ -642,9 +643,9 @@ def test_fdct_quant_batches_match_plain_version_on_gpu():
     for shape, fmt in cases:
         frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
         for q in (90, 55, 100):
-            n, nf = jpeg.launches_fdct, jpeg.launches_fdct_frames
+            n, nf = profiling.counter("J1"), profiling.counter("J1_frames")
             got = jpeg.fdct_quant(frames, q, fmt)
-            assert (jpeg.launches_fdct, jpeg.launches_fdct_frames) == (n + 1, nf + shape[0])
+            assert (profiling.counter("J1"), profiling.counter("J1_frames")) == (n + 1, nf + shape[0])
             assert torch.equal(got, jpeg.fdct_quant_reference(frames, q, fmt)), (shape, fmt, q)
     for kind in ("zeros", "ones", "checker1", "checker8"):
         for fmt, (h, w) in J1_SIZES + [("i420", (512, 512)), ("rgb", (512, 512))]:

@@ -13,6 +13,7 @@ import torch
 from latentblending_tpu.ops import interp as jinterp
 from latentblending_tpu.ops import scheduler as jsched
 from latentblending_tpu.ops.pallas_kernels import slerp_pallas
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.models import layers as tlayers
 from latentblending_tpu_torch.ops import attention as tattn
 from latentblending_tpu_torch.ops import interp as tinterp
@@ -55,9 +56,9 @@ def test_slerp_rows_cpu_tensor_takes_plain_version():
     rng = np.random.default_rng(2)
     a, b = (torch.from_numpy(rng.normal(size=(3, 4, 4, 4)).astype(np.float32)) for _ in range(2))
     f = torch.tensor([0.0, 0.5, 1.0])
-    before = tslerp.launches
+    before = profiling.counter("K1_rows")
     np.testing.assert_array_equal(_np(tslerp.slerp_rows(a, b, f)), _np(tslerp.slerp_rows_reference(a, b, f)))
-    assert tslerp.launches == before
+    assert profiling.counter("K1_rows") == before
 
 
 @pytest.mark.parametrize("fract", [0.0, 0.3, 1.0])
@@ -141,10 +142,10 @@ def test_attention_reference_matches_jax(b, l, h, d):
     want = jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     got = tattn.attention_reference(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-    before = (tattn.launches_self, tattn.launches_vae)
+    before = (profiling.counter("K2"), profiling.counter("K3"))
     got2 = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
     np.testing.assert_array_equal(_np(got2), _np(got))
-    assert (tattn.launches_self, tattn.launches_vae) == before
+    assert (profiling.counter("K2"), profiling.counter("K3")) == before
 
 
 def test_attention_reference_with_mask_matches_jax():
@@ -261,9 +262,9 @@ def test_kernels_match_plain_versions_on_gpu():
     for dtype, bound in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         a, b = (torch.randn((10, 64, 64, 4), generator=g, device="cuda").to(dtype) for _ in range(2))
         f = torch.rand((10,), generator=g, device="cuda")
-        n = tslerp.launches
+        n = profiling.counter("K1_rows")
         got = tslerp.slerp_rows(a, b, f).float()
-        assert tslerp.launches == n + 1
+        assert profiling.counter("K1_rows") == n + 1
         want = tslerp.slerp_rows_reference(a, b, f).float()
         assert bool(((got - want).abs() <= bound + bound * want.abs()).all())
     # the fused scan's rows: fraction exactly 0 (row 0 slerped with itself)
@@ -279,36 +280,36 @@ def test_kernels_match_plain_versions_on_gpu():
     for shape, peak in k2_cases:
         q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
         q, k, v = (q * peak).bfloat16(), k.bfloat16(), v.bfloat16()
-        n = tattn.launches_self
+        n = profiling.counter("K2")
         got = tattn.flash_attention(q, k, v).float()
-        assert tattn.launches_self == n + 1
+        assert profiling.counter("K2") == n + 1
         assert (got - tattn.attention_reference(q.float(), k.float(), v.float())).abs().max().item() <= 2e-2, shape
     k3_cases = [((4, 4096, 1, 512), 1.0), ((2, 4096, 1, 512), 1.0), ((1, 16384, 1, 512), 1.0),
                 ((2, 4096, 1, 512), 4.0)]
     for shape, peak in k3_cases:
         q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
         q = q * peak
-        n = tattn.launches_vae
+        n = profiling.counter("K3")
         got = tattn.flash_attention(q, k, v)
-        assert tattn.launches_vae == n + 1
+        assert profiling.counter("K3") == n + 1
         want = tattn.attention_reference(q, k, v)
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), shape
     # K2 in f32 (a float32 UNet) and K3 in bf16 (a bf16 VAE, decode and encode)
     for shape, peak in [((12, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((10, 1024, 10, 64), 4.0)]:
         q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
         q = q * peak
-        n = tattn.launches_self_f32
+        n = profiling.counter("K2_f32")
         got = tattn.flash_attention(q, k, v)
-        assert tattn.launches_self_f32 == n + 1
+        assert profiling.counter("K2_f32") == n + 1
         want = tattn.attention_reference(q, k, v)
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), shape
     for shape, peak in [((4, 4096, 1, 512), 1.0), ((8, 4096, 1, 512), 1.0), ((1, 4096, 1, 512), 1.0),
                         ((1, 16384, 1, 512), 1.0), ((2, 4096, 1, 512), 4.0)]:
         q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
         q, k, v = (q * peak).bfloat16(), k.bfloat16(), v.bfloat16()
-        n = tattn.launches_vae_bf16
+        n = profiling.counter("K3_bf16")
         got = tattn.flash_attention(q, k, v).float()
-        assert tattn.launches_vae_bf16 == n + 1
+        assert profiling.counter("K3_bf16") == n + 1
         want = tattn.attention_reference(q.float(), k.float(), v.float())
         assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item(), shape
     with pytest.raises(TypeError):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.ops import slerp as tslerp
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -88,11 +89,11 @@ def test_tree_step_cpu_tensor_takes_plain_version(window):
     rng = np.random.default_rng(11)
     lat, p1, p2, pf, mc, win, mask = (torch.from_numpy(x) if x is not None else None
                                       for x in _tree_inputs(rng, 6, (4, 4, 4), window))
-    before = (tslerp.launches, tslerp.launches_tree_step)
+    before = (profiling.counter("K1_rows"), profiling.counter("K1_tree"))
     got = tslerp.slerp_tree_step(lat, p1, p2, pf, mc, win, mask if window else None)
     want = tslerp.slerp_tree_step_reference(lat, p1, p2, pf, mc, win, mask if window else None)
     np.testing.assert_array_equal(_np(got), _np(want))
-    assert (tslerp.launches, tslerp.launches_tree_step) == before
+    assert (profiling.counter("K1_rows"), profiling.counter("K1_tree")) == before
     # exact fractions: mix 0 keeps the row, parental 0 then mix 1 gives parent 1's state
     assert torch.equal(got[0], lat[0])
     assert torch.equal(got[1], win if window else lat[1])
@@ -232,9 +233,9 @@ def test_slerp_kernels_match_plain_versions_on_gpu():
         a, b = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(2))
         f = torch.rand((shape[0],), generator=g, device="cuda")
         f[0], f[1] = 0.0, 1.0
-        n = tslerp.launches
+        n = profiling.counter("K1_rows")
         got = tslerp.slerp_rows(a, b, f)
-        assert tslerp.launches == n + 1
+        assert profiling.counter("K1_rows") == n + 1
         assert _close(got, tslerp.slerp_rows_reference(a, b, f), dtype), (shape, dtype)
         assert torch.equal(got[0], a[0]) and torch.equal(got[1], b[1]), (shape, dtype)
         assert torch.equal(got, tslerp.slerp_rows(a, b, f)), (shape, dtype)
@@ -254,9 +255,9 @@ def test_slerp_kernels_match_plain_versions_on_gpu():
                   "mix_coeff": torch.from_numpy(mc).cuda(),
                   "window": torch.from_numpy(win).to(dtype).cuda() if window else None,
                   "win_mask": torch.from_numpy(mask).cuda() if window else None}
-            n = tslerp.launches_tree_step
+            n = profiling.counter("K1_tree")
             got = tslerp.slerp_tree_step(**cu)
-            assert tslerp.launches_tree_step == n + 1
+            assert profiling.counter("K1_tree") == n + 1
             assert _close(got, tslerp.slerp_tree_step_reference(**cu), dtype), (dtype, window)
             lat_c = cu["latents"]
             assert torch.equal(got[0], lat_c[0])  # mix 0
