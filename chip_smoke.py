@@ -16,8 +16,9 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    fails unless K3 bf16 (attention_d512_bf16: wgmma and TMA over a 2-CTA
    cluster), K3 in f32 (attention_d512_f32: 3xTF32 on TF32 wgmma and TMA
    over a 4-CTA cluster) and K2 in f32 (attention_d64_f32: 3xTF32 on TF32
-   wgmma) have HGMMA, no HMMA and no spill loads or stores, and unless J1's
-   fdct_quant_kernel has no local memory;
+   wgmma) and C1 (conv3x3_f32: 3xTF32 on TF32 wgmma) have HGMMA, no HMMA
+   and no spill loads or stores, and unless J1's fdct_quant_kernel has no
+   local memory;
 3. holds J1 exactly against its plain version on frames made here
    (j1_exact_cases: noise at the movie path's batches [1|4,768,512] I420
    and [12|34,512,512,3] RGB and at odd sizes, 0, 255 and checkerboards of
@@ -35,13 +36,20 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    [12|2,1024,10,64], [10,…] peaked and [4,4096,10,64], K3 in bf16 at
    [4|8|1,4096,1,512], [1,16384,1,512], [2,…] peaked and [1,192,1,512]
    (three key tiles); the K2/K3 wrapper's refusals (no kernel for fp16,
-   one head at d=512, K2 f32's L a multiple of 128).
-   The f32 kernels are held to K3_REL_BOUND, K2 bf16 to K2_ABS_BOUND and
-   K3 bf16 to K3_BF16_REL_BOUND.
+   one head at d=512, K2 f32's L a multiple of 128); C1 at every shape of
+   the f32 VAE decoder's 31 3x3 convolutions a decode call at SDXL-Turbo
+   512² (batch 4) and SDXL-base 1024² (batch 1), against F.conv2d in
+   float64 (cuDNN's FFMA and TF32 errors beside it, TF32 outside the
+   bound), at least C1_MIN_SPEEDUP times cuDNN's FFMA kernel, the calls of
+   a decode summed, then at an f32 UNet's shapes, narrow and ragged images;
+   C1's wrapper's refusals (bf16, stride 2, Cin 4, non-contiguous).
+   The f32 attention kernels are held to K3_REL_BOUND, C1 to
+   C1_REL_BOUND, K2 bf16 to K2_ABS_BOUND and K3 bf16 to K3_BF16_REL_BOUND.
    For each case it prints the max abs/rel error, the kernel's device time
    (CUDA-graph replay of 10 launches, median of 10), the time of one call
    (CUDA events, median of 20), the plain version's and, for K2/K3,
-   scaled_dot_product_attention's device time (the port never calls it),
+   scaled_dot_product_attention's, for C1 cuDNN's FFMA convolution's device
+   time (the port never calls either),
    the bound (bytes over 3.35 TB/s or operations over the peak of the unit
    that runs them) and the share of it reached;
 4. checks the slice on a small input: the tiny-turbo transition on the GPU
@@ -55,7 +63,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
      be the fused one: 12 uint8 512×512 keyframes, 11 finite similarities,
      each kernel launched exactly as often as the plan gives
      (_expected_launches: slerp_tree_step once per step, 4; slerp_rows
-     never; K2 40; K3 3); first and warm wall, peak memory;
+     never; K2 40; K3 3; C1 93, 31 a decode call, in the counter and in the
+     report); first and warm wall, peak memory;
    - the same with LB_FUSED=0 (the per-level path: slerp_rows, K2, K3);
    - run_transition_streaming(keyframe_format="i420"): each resolved handle
      within 1 of the host I420 conversion of the fused RGB keyframe;
@@ -192,10 +201,16 @@ SEEDS = [420, 421]
 #     and too loose to fail a kernel that dropped a key tile); the bounds
 #     are emulated on the CPU in
 #     tests/test_torch_attention_numerics.py.
+# C1: max abs error <= 1e-5 * max |F.conv2d in float64| (3xTF32 into an
+#     accumulator refreshed every K block of 72: the card read 0.9-1.0e-6,
+#     cuDNN's FFMA 2-4e-6 at K = 4608; one TF32 pass, cuDNN with
+#     allow_tf32, ~3e-4 and is shown to fail it; emulated on the CPU in
+#     tests/test_torch_conv.py).
 K1_BOUND = {"bfloat16": 2e-2, "float32": 1e-5}
 K2_ABS_BOUND = 2e-2
 K3_REL_BOUND = 1e-4
 K3_BF16_REL_BOUND = 1e-2
+C1_REL_BOUND = 1e-5
 
 
 def _card_line() -> str:
@@ -576,6 +591,120 @@ def _attention_refusals(torch, g) -> None:
           f"K2 f32's L a multiple of 128)", flush=True)
 
 
+# the SDXL VAE decoder's 31 stride-1 3x3 convolutions a decode call, as
+# (Cin, Cout, side at a 64x64 latent, calls): the mid block and up block 0
+# at the latent's side, up blocks 1-3 after each 2x upsampler (whose conv
+# is the first at its side); SDXL-base 1024² doubles every side
+C1_DECODER = [(512, 512, 64, 10), (512, 512, 128, 7), (512, 512, 256, 1), (512, 256, 256, 1), (256, 256, 256, 5),
+              (256, 256, 512, 1), (256, 128, 512, 1), (128, 128, 512, 5)]
+# (the other shapes C1 takes: an f32 UNet's levels at 512² (320 output
+# channels: half an output tile), its concatenated skips, narrow images
+# (runs of 2 x 32 and 4 x 16 pixels) and ragged edges)
+C1_OTHER = [(2, 320, 320, 64, 64), (2, 640, 640, 32, 32), (2, 2560, 1280, 16, 16), (2, 960, 320, 64, 64),
+            (1, 64, 128, 33, 100), (3, 8, 64, 5, 12), (1, 16, 192, 3, 4)]
+# C1 launches: one a stride-1 3x3 convolution of an f32 module that the
+# route takes (tests/test_torch_conv.py holds it to these counts): 31 a
+# decode call of an f32 VAE (C1_DECODER), 34 an eval of an f32 SDXL UNet
+# as the holder calls it: of its 36 (conv_in, conv_out and the stride-2
+# downsamplers stay on cuDNN) the two upsamplers' convs see the residual
+# stream in NHWC strides (the holder passes the latents as an NHWC view, so
+# conv_in's output and the stream keep them; GroupNorm's output, which the
+# resnets' convs take, is NCHW) and stay on cuDNN
+C1_PER_DECODE = 31
+C1_PER_UNET_EVAL = 34
+C1_MIN_SPEEDUP = 1.5  # over cuDNN's FFMA kernel at every decoder shape
+
+
+def _conv_case(torch, g, B: int, cin: int, cout: int, hw, timed: bool, calls: int = 0) -> dict:
+    """C1 against F.conv2d in float64 on the same inputs (weights at the
+    modules' 1/sqrt(fan-in) scale), within C1_REL_BOUND * max |result|;
+    cuDNN's FFMA (TF32 off) and TF32 errors beside it, the TF32 one outside
+    the bound. timed: device, one-call, plain and cuDNN FFMA (library) ms,
+    the bound (3 x flops over the TF32 peak) and C1's speedup over cuDNN,
+    at least C1_MIN_SPEEDUP (a timed case is a decoder shape, where cuDNN's
+    TF32 route runs on the tensor cores: its error must fail the bound)."""
+    import torch.nn.functional as F
+
+    from latentblending_tpu_torch.ops import conv
+
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    x = torch.randn((B, cin, h, w), generator=g, device="cuda")
+    wt = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * (9 * cin) ** -0.5
+    b = torch.randn((cout,), generator=g, device="cuda") * 0.1
+    got = conv.conv3x3_f32(x, wt, b)
+    want = F.conv2d(x.double(), wt.double(), b.double(), padding=1)
+    scale = want.abs().max().item()
+
+    def rel(y):
+        return (y.double() - want).abs().max().item() / scale
+
+    case = {"shape": [B, cin, cout, h, w], "calls_a_decode": calls, "max_abs_err": rel(got) * scale,
+            "max_rel_err": rel(got), "cudnn_ffma_rel_err": rel(F.conv2d(x, wt, b, padding=1)),
+            "finite": bool(torch.isfinite(got).all()), "bound": C1_REL_BOUND}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        case["cudnn_tf32_rel_err"] = rel(F.conv2d(x, wt, b, padding=1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del got, want
+    case["ok"] = case["finite"] and case["max_rel_err"] <= C1_REL_BOUND
+    flops = 2 * B * h * w * cout * cin * 9
+    case.update(_bound(4 * (x.numel() + wt.numel() + b.numel() + B * cout * h * w), 3 * flops, "tf32"))
+    case["flops"], case["bound_peak"] = flops, "3xtf32"
+    if timed:
+        _timings(torch, case, lambda: conv.conv3x3_f32(x, wt, b), lambda: conv.conv3x3_reference(x, wt, b),
+                 lambda: F.conv2d(x, wt, b, padding=1))
+        case["speedup_over_cudnn"] = case["library_ms"] / case["ms"]
+        case["ok"] = (case["ok"] and case["speedup_over_cudnn"] >= C1_MIN_SPEEDUP
+                      and case["cudnn_tf32_rel_err"] > C1_REL_BOUND)
+    print("C1 conv3x3 f32", json.dumps(case), flush=True)
+    if not case["ok"]:
+        raise AssertionError(f"C1 outside its bound (error, or TF32 not outside it, or under "
+                             f"{C1_MIN_SPEEDUP}x cuDNN): {case}")
+    return case
+
+
+def c1_cases(torch, g) -> list:
+    """C1 at every decoder shape of SDXL-Turbo 512² (decode chunk 4) and
+    SDXL-base 1024² (chunk 1), timed, then at the other shapes it takes;
+    a per-shape table of C1 against cuDNN's FFMA kernel, weighted by the
+    calls a decode makes."""
+    cases = [_conv_case(torch, g, B, cin, cout, side * scale, True, n)
+             for B, scale in ((4, 1), (1, 2)) for cin, cout, side, n in C1_DECODER]
+    for label, part in (("SDXL-Turbo 512², chunk 4", cases[:len(C1_DECODER)]),
+                        ("SDXL-base 1024², chunk 1", cases[len(C1_DECODER):])):
+        c1 = sum(c["ms"] * c["calls_a_decode"] for c in part)
+        cudnn = sum(c["library_ms"] * c["calls_a_decode"] for c in part)
+        print(f"C1 a decode call, {label}: {c1:.3f} ms of C1 against {cudnn:.3f} ms of cuDNN FFMA over the "
+              f"{sum(c['calls_a_decode'] for c in part)} convolutions ({cudnn / c1:.2f}x)", flush=True)
+    return cases + [_conv_case(torch, g, B, cin, cout, (h, w), False) for B, cin, cout, h, w in C1_OTHER]
+
+
+def _conv_refusals(torch, g) -> None:
+    """conv3x3_f32 raises on a CUDA input C1 does not take (bf16, stride 2,
+    Cin 4, a non-contiguous input) and launches nothing."""
+    from latentblending_tpu_torch.ops import conv
+
+    x = torch.randn((1, 8, 8, 8), generator=g, device="cuda")
+    w = torch.randn((64, 8, 3, 3), generator=g, device="cuda")
+    calls = [
+        (TypeError, lambda: conv.conv3x3_f32(x.bfloat16(), w.bfloat16())),
+        (ValueError, lambda: conv.conv3x3_f32(x, w, stride=2)),
+        (ValueError, lambda: conv.conv3x3_f32(x[:, :4].contiguous(), w[:, :4].contiguous())),
+        (ValueError, lambda: conv.conv3x3_f32(x.transpose(2, 3), w)),
+    ]
+    before = _c1_count()
+    for i, (error, call) in enumerate(calls):
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"conv3x3_f32 refusal {i}: expected {error.__name__}")
+    if _c1_count() != before:
+        raise AssertionError("a refused conv3x3_f32 call launched C1")
+    print(f"C1 wrapper: {len(calls)} refusals raised (bf16, stride 2, Cin 4, a non-contiguous input)", flush=True)
+
+
 def kernel_phases(torch) -> dict:
     """Each kernel vs its plain version at the main path's shapes. The first
     case of each kernel is the one the kernels line reports."""
@@ -640,6 +769,8 @@ def kernel_phases(torch) -> dict:
     res["K2_f32"] = [_attention_case(torch, g, shape, torch.float32, peak) for shape, peak in k2_f32_cases]
     res["K3_bf16"] = [_attention_case(torch, g, shape, torch.bfloat16, peak) for shape, peak in k3_bf16_cases]
     _attention_refusals(torch, g)
+    res["C1"] = c1_cases(torch, g)
+    _conv_refusals(torch, g)
     # cuBLAS keeps a workspace for each stream it ran on (the timing's side
     # and capture streams): release them, so the main path's peak memory
     # counts the main path's own allocations only
@@ -752,6 +883,32 @@ def _read_counts() -> dict:
     return {k: profiling.counter(k) - _COUNTS_ZERO.get(k, 0) for k in _COUNT_KEYS}
 
 
+def _c1_count() -> int:
+    """C1's launches since the last _zero_counts (kept out of _COUNT_KEYS:
+    the paths' launch checks derive it, _check_c1)."""
+    from latentblending_tpu_torch import profiling
+
+    return profiling.counter("C1") - _COUNTS_ZERO.get("C1", 0)
+
+
+_C1_LAUNCHES: dict = {}  # a counted path's label -> C1's launches in it (the kernels line)
+
+
+def _check_c1(be, counts: dict, c1: int, k2_per_eval: int, label: str) -> None:
+    """C1 ran once for every stride-1 3x3 convolution of the f32 modules:
+    C1_PER_DECODE a decode call of an f32 VAE (K3's launches) and
+    C1_PER_UNET_EVAL an eval of an f32 UNet (K2 f32's over k2_per_eval),
+    in the counted run and in the last run's report."""
+    want = C1_PER_DECODE * counts["K3"] + C1_PER_UNET_EVAL * counts["K2_f32"] // k2_per_eval
+    in_report = be.last_report.counters.get("C1", 0)
+    print(f"{label}: C1 launches {c1}, in the last run's report {in_report} (expected {want}: "
+          f"{C1_PER_DECODE} x {counts['K3']} f32 decode calls + {C1_PER_UNET_EVAL} x "
+          f"{counts['K2_f32'] // k2_per_eval} f32 UNet evals)", flush=True)
+    if c1 != want or in_report != want:
+        raise AssertionError(f"{label}: C1 launched {c1} times ({in_report} in the report), expected {want}")
+    _C1_LAUNCHES[label] = c1
+
+
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -844,6 +1001,7 @@ def _drive_path(torch, be, path: str, label: str, k2_per_eval: int, **recycle) -
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = _read_counts()
+    c1 = _c1_count()
     _check_transition(be, imgs, counts, path, k2_per_eval, label, sum(bool(v) for v in recycle.values()))
     print(f"{label}: launches during run_transition {json.dumps(counts)} (as expected), first call {first_s:.4f} s",
           flush=True)
@@ -863,6 +1021,7 @@ def _drive_path(torch, be, path: str, label: str, k2_per_eval: int, **recycle) -
           f"power, temperature): {_card_state()}", flush=True)
     print(f"{label}: phases (warm run, host clock): {json.dumps(be.last_report.phases)}", flush=True)
     _check_trace(be, label)
+    _check_c1(be, counts, c1, k2_per_eval, label)
     print(f"{label}: tree_fracts {[round(f, 6) for f in be.tree_fracts]}", flush=True)
     print(f"{label}: similarities {list(be.tree_similarities)}", flush=True)
     if not same or _report_path(be) != path:
@@ -2623,6 +2782,9 @@ def _kernels_line(kres: dict, counts: dict, local: list) -> list:
                "latentblending_tpu_torch/csrc/attention_d512_f32.cu", "latentblending_tpu/models/layers.py:373"),
         "K3_bf16": ("attention_d512_bf16 (wgmma, TMA, 2-CTA cluster)",
                     "latentblending_tpu_torch/csrc/attention_d512_bf16.cu", "latentblending_tpu/models/layers.py:373"),
+        # no TPU kernel: the JAX package's convolutions are XLA's
+        "C1": ("conv3x3_f32 (3xTF32 wgmma implicit GEMM, TMA input boxes, weights split per tile, bias in "
+               "the epilogue)", "latentblending_tpu_torch/csrc/conv3x3_f32.cu", "none (XLA's convolutions)"),
         # no TPU kernel: the work the JAX package does on the host through libjpeg
         "J1": ("jpeg_fdct_quant (libjpeg's islow DCT and quantize, from I420 or RGB)",
                "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:66"),
@@ -2640,10 +2802,10 @@ def _kernels_line(kres: dict, counts: dict, local: list) -> list:
     kernels = []
     for k, (name, source, replaces) in meta.items():
         first = kres[k][0]
+        by_path = _C1_LAUNCHES if k == "C1" else {path: c[k] for path, c in counts.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(c[k] for c in counts.values()),
-            "launches_by_path": {path: c[k] for path, c in counts.items()},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in kres[k]),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"], "shape": first["shape"],
@@ -2687,7 +2849,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.3f} s -> {os.path.relpath(lib, ROOT)}", flush=True)
     _build.library()
     sass = _print_sass_counts(lib)
-    for kernel in ("attention_d512_bf16", "attention_d512_f32", "attention_d64_f32"):
+    for kernel in ("attention_d512_bf16", "attention_d512_f32", "attention_d64_f32", "conv3x3_f32"):
         _check_wgmma_sass(sass, kernel)
     fdct = {name: c for name, c in sass.items() if "fdct_quant_kernel" in name}
     if not fdct or any(c["local"] for c in fdct.values()):

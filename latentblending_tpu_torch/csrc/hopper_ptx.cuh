@@ -1,9 +1,9 @@
 // Hand-written PTX helpers shared by the port's kernels (sm_90a):
 // mbarriers (local and across a cluster), TMA tile loads and their tensor
-// maps, wgmma (bf16 and TF32, 128-byte swizzle), register reallocation
-// between warpgroups, named barriers, and thread-block-cluster shared
-// memory (remote stores and bulk copies between the CTAs). Header only;
-// every function is inlined into its kernel or launcher.
+// maps, wgmma (bf16 and TF32; 128- and 32-byte swizzle), register
+// reallocation between warpgroups, named barriers, and thread-block-cluster
+// shared memory (remote stores and bulk copies between the CTAs). Header
+// only; every function is inlined into its kernel or launcher.
 #pragma once
 
 #include <cuda.h>
@@ -79,6 +79,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 4-d box (no swizzle: the box lands dense, innermost
+// dimension first). The innermost coordinate must fall on a 16-byte
+// boundary of the row (a box of f32 at column -1 raised an illegal
+// instruction on the H100; at -4 it reads zeros there).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------- TMA maps (host)
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -131,6 +144,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
 }
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) { return sw128_desc(smem_u32(tile)); }
+
+// The same for the 32-byte swizzle (16-byte chunk c of 32-byte row r at
+// chunk c ^ ((r >> 2) & 1)), tile base 256-byte aligned: a K-major operand
+// one TF32 k8 step (32 bytes) deep, its 8-row groups 256 bytes apart
+// (SBO); LBO is unused.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(256 >> 4) << 32) | (3ull << 62);
+}
 
 // x, opaque to the compiler: what is computed from it is not hoisted out
 // of the loop it is in (descriptors built from an opaque base at each use

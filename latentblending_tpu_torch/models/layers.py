@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from latentblending_tpu_torch.ops import conv as conv_ops
 from latentblending_tpu_torch.ops.attention import attention_reference, flash_attention
 
 
@@ -59,8 +60,21 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
 
 
+class Conv3x3(nn.Conv2d):
+    """A 3x3 convolution with padding 1 (an nn.Conv2d: the same parameters
+    and state-dict keys). A contiguous CUDA float32 input that C1 takes
+    (ops/conv.py::route: stride 1, its channel and width multiples) runs
+    on the hand-written kernel; bf16 inputs, stride-2 downsamplers and
+    narrow layers (conv_in, conv_out) stay on F.conv2d."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if conv_ops.route(self, x):
+            return conv_ops.conv3x3_f32(x, self.weight, self.bias)
+        return super().forward(x)
+
+
 def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+    return Conv3x3(cin, cout, 3, stride=stride, padding=1)
 
 
 class TimestepEmbedding(nn.Module):
@@ -175,7 +189,10 @@ class Transformer2D(nn.Module):
         for blk in self.transformer_blocks:
             y = blk(y, context)
         y = self.proj_out(y)
-        return y.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+        # x first: the sum takes x's NCHW strides (with the permuted NHWC
+        # view first it took the view's, and the residual stream after it
+        # stayed NHWC, which C1 does not take)
+        return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class ResnetBlock2D(nn.Module):
@@ -242,7 +259,7 @@ class VAEAttention(nn.Module):
         else:
             out = attention_reference(q, k, v)
         out = self.to_out[0](out.reshape(b, L, c))
-        return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+        return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)  # x first: NCHW strides, as in Transformer2D
 
 
 _NORMS = (nn.GroupNorm, nn.LayerNorm)
