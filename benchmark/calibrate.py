@@ -9,9 +9,10 @@ and the first `--transitions` requests of the cell's traffic, and is freed;
 the reference replays them and judges them as a run does. With a control
 seed, the control replays the same transitions too and is judged the same
 way: the plain reference put in the program's place, computed one step
-below the configuration's precisions (UNet matmuls and convolutions
-through float8 e4m3, the float32 parts on TF32). Prints one JSON line per
-seed and side. Not run by the benchmark's runs.
+below the configuration's precisions (the float32 parts on TF32, and
+where the architecture module says, SDXL's UNet, matmuls and convolutions
+through float8 e4m3). Prints one JSON line per seed and side. Not run by
+the benchmark's runs.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ import sys
 import torch
 
 from benchmark import calls, check as chk
-from benchmark.reference.layers import Precision
 from benchmark.reference.transition import Models, Transition, Tree
 from benchmark.run import cell_files, load
 
@@ -56,7 +56,7 @@ def readings(bench: dict, workload: str, seed: int, transitions: int, control: b
         refs.append((ref, out))
         rows.append(dict(side="program", seed=seed, **chk.judge(ref, out, tree, path)[0]))
     if control:
-        ctl_models = Models(cfg, seed, device, Precision(fp8=True))
+        ctl_models = Models(cfg, seed, device, control=True)
         for (req, tree, _movie), (ref, out) in zip(kept, refs):
             ctl = Transition(ctl_models, req, policy, control=True, keyframe_format=fmt).run(tree)
             ctree = Tree(ctl["fracts"], ctl["idx"], ctl["keyframes"].cpu().numpy(), ctl["finals"], path)

@@ -6,7 +6,7 @@ limits (benchmark/checks/<cell>.json).
 Numbers, each the worst over the sampled transitions:
 - latent_rel: the worst keyframe's |program - reference| / |reference| of
   the final latents, the reference computing the whole transition from the
-  prompts and seeds (text towers, UNet, sampler, tree);
+  prompts and seeds (text conditioning, denoiser, sampler, tree);
 - keyframe_mad: the worst keyframe's mean |program - reference| in uint8
   levels, over the same whole transition and its decode;
 - decode_mad: the same against the reference's decode of the program's own

@@ -3,12 +3,15 @@ both prompts, both edges denoised from their seeds' noise, every level's
 stems started from the parental mix at their injection step and crossfed
 toward it, and every keyframe decoded, all in float32 (TF32 off).
 
-The tree it replays is the one the program built (the fractions and the
-injection step of each keyframe), and it judges how that tree was placed:
-under a value-independent plan (the fused single-level transition and the
-predictive policy) by the placement rule on predicted distances, exactly;
-under the measured policy by the rule on the reference's own NLPD distances
-(`placement_regret`).
+What belongs to the model (its weight parts, conditioning, guided output,
+sampler step, noise and decode) is the configuration's architecture
+module, benchmark/reference/<architecture>.py; this module replays the
+tree. The tree it replays is the one the program built (the fractions and
+the injection step of each keyframe), and it judges how that tree was
+placed: under a value-independent plan (the fused single-level transition
+and the predictive policy) by the placement rule on predicted distances,
+exactly; under the measured policy by the rule on the reference's own NLPD
+distances (`placement_regret`).
 """
 from __future__ import annotations
 
@@ -17,13 +20,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from benchmark import architecture
 from benchmark.reference import sampler
-from benchmark.reference.clip import TextEncoder, hash_tokenize
-from benchmark.reference.layers import Precision, tf32
+from benchmark.reference.layers import tf32
 from benchmark.reference.nlpd import nlpd
-from benchmark.reference.unet import UNet
-from benchmark.reference.vae import VAEDecoder, i420_to_rgb, pm1_to_i420
-from benchmark.weights import PARTS, fill, names_of, part_dtype
+from benchmark.reference.vae import i420_to_rgb, pm1_to_i420
+from benchmark.weights import fill_parts
 
 
 @dataclasses.dataclass
@@ -42,37 +44,21 @@ class Tree:
     fracts: list
     idx: list
     keyframes: np.ndarray  # uint8 [K,H,W,3] in tree order
-    finals: torch.Tensor  # final latents [K,h,w,4] in tree order
+    finals: torch.Tensor  # final latents [K,h,w,c] in tree order
     path: str
 
 
 class Models:
-    """The reference's four parts, built on `device` from the run's seed."""
+    """The reference's parts of the configuration's architecture, built on
+    `device` from the run's seed; control: the parts one precision below
+    the configuration's (the architecture module says where)."""
 
-    def __init__(self, cfg: dict, seed: int, device, prec: Precision | None = None):
+    def __init__(self, cfg: dict, seed: int, device, control: bool = False):
         self.cfg, self.device = cfg, torch.device(device)
-        self.prec = prec or Precision()
-        c1 = dict(cfg["text_encoder"], projection=False)
-        c2 = dict(cfg["text_encoder_2"], projection=True)
-        mods = {"unet": UNet(cfg["unet"], self.prec), "vae": VAEDecoder(cfg["vae"], Precision()),
-                "clip1": TextEncoder(c1, Precision()), "clip2": TextEncoder(c2, Precision())}
-        for i, part in enumerate(PARTS):
-            m = mods[part].to_empty(device=self.device).eval().requires_grad_(False)
-            names = names_of(m)
-            fill(dict(m.state_dict()), names, seed, i, part_dtype(cfg, part), self.device)
-            setattr(self, part, m)
-
-
-def _embed(m: Models, texts: list[str]):
-    tok = m.cfg["tokenizer"]
-    rows = []
-    for key, clip in (("tokenizer", m.clip1), ("tokenizer_2", m.clip2)):
-        t = tok[key]
-        ids = np.stack([hash_tokenize(x.replace("_", " "), t["vocab_size"], t["bos_token_id"], t["eos_token_id"],
-                                      t["pad_token_id"]) for x in texts])
-        rows.append(clip(torch.as_tensor(ids, device=m.device)))
-    (pen1, _), (pen2, pooled) = rows
-    return torch.cat([pen1, pen2], dim=-1), pooled
+        self.arch = architecture.load("reference", cfg)
+        self.parts = {name: m.to_empty(device=self.device).eval().requires_grad_(False)
+                      for name, m in self.arch.parts(cfg, control).items()}
+        fill_parts(self.parts, self.parts, self.arch.PARTS, cfg, seed, self.device)
 
 
 class Transition:
@@ -85,64 +71,20 @@ class Transition:
         self.m, self.cfg, self.req, self.policy = m, m.cfg, req, policy
         self.keyframe_format = keyframe_format
         self.control = control
-        run = self.cfg["run"]
-        self.N = run["num_inference_steps"]
-        self.H, self.W = run["height"], run["width"]
-        self.h, self.w = self.H // 8, self.W // 8
-        self.timesteps, self.sigmas, self.init_sigma = sampler.schedule(self.cfg["scheduler"], self.N)
-        self.ancestral = sampler.is_ancestral(self.cfg["scheduler"])
-        self.cfg_on = run["guidance_scale"] > 1.0
+        self.N = self.cfg["run"]["num_inference_steps"]
         with torch.no_grad(), tf32(control):
-            pe, pooled = _embed(m, [req.prompt1, req.prompt2, req.negative])
-        self.pe, self.pooled = pe, pooled
-        self.tids = torch.tensor([[self.H, self.W, 0, 0, self.H, self.W]], dtype=torch.float32, device=m.device)
-
-    def _cond(self, fracts: list[float]):
-        f = torch.tensor(fracts, dtype=torch.float32, device=self.m.device)
-        pe = (1 - f)[:, None, None] * self.pe[0:1] + f[:, None, None] * self.pe[1:2]
-        pool = (1 - f)[:, None] * self.pooled[0:1] + f[:, None] * self.pooled[1:2]
-        if self.cfg_on:
-            n = len(fracts)
-            pe = torch.cat([self.pe[2:3].expand(n, -1, -1), pe])
-            pool = torch.cat([self.pooled[2:3].expand(n, -1), pool])
-        return pe, pool
-
-    def _noise(self, seed: int) -> torch.Tensor:
-        gen = torch.Generator(device=self.m.device).manual_seed(int(seed))
-        x = torch.randn((1, self.h, self.w, 4), generator=gen, device=self.m.device, dtype=torch.float32)
-        return x * self.init_sigma
-
-    def _eps(self, x, i: int, fracts: list[float]):
-        """The guided epsilon of rows x [B,h,w,4] at step i."""
-        sigma = float(self.sigmas[i])
-        lmi = x / (sigma ** 2 + 1.0) ** 0.5
-        pe, pool = self._cond(fracts)
-        rows = 2 if self.cfg_on else 1
-        inp = torch.cat([lmi] * rows).permute(0, 3, 1, 2)
-        t = torch.tensor([float(self.timesteps[i])], device=x.device)
-        eps = torch.cat([self.m.unet(inp[j:j + 1], t, pe[j:j + 1], pool[j:j + 1], self.tids)
-                         for j in range(inp.shape[0])]).permute(0, 2, 3, 1)
-        if not self.cfg_on:
-            return eps
-        run = self.cfg["run"]
-        g = torch.tensor([sampler.guidance_at(f, run["guidance_scale"], run["guidance_scale_mid_damper"])
-                          for f in fracts], device=x.device)[:, None, None, None]
-        u, c = eps.chunk(2)
-        return u + g * (c - u)
-
-    def _step(self, x, eps, i: int, noise):
-        return sampler.euler_step(x, eps, float(self.sigmas[i]), float(self.sigmas[i + 1]), noise)
+            self.steps = m.arch.Steps(m, [req.prompt1, req.prompt2, req.negative])
 
     def _decode(self, finals: torch.Tensor):
         u8, pm1 = [], []
         for j in range(finals.shape[0]):
-            a, b = self.m.vae(finals[j:j + 1])
+            a, b = self.steps.decode(finals[j:j + 1])
             u8.append(a if self.keyframe_format == "rgb" else i420_to_rgb(*pm1_to_i420(b)))
             pm1.append(b)
         return torch.cat(u8), torch.cat(pm1)
 
     def decode(self, finals: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """uint8 keyframes and [-1,1] images of final latents [K,h,w,4] (the
+        """uint8 keyframes and [-1,1] images of final latents [K,h,w,c] (the
         decode stage alone)."""
         with torch.no_grad(), tf32(self.control):
             return self._decode(finals.float())
@@ -154,16 +96,17 @@ class Transition:
             return self._run(tree)
 
     def _draws(self, tree: Tree):
-        """The euler-ancestral draws: one generator per transition seeded from
-        both keyframe seeds, one call [N, B, h, w, 4] over the fused batch
-        (edges, then stems in placement order)."""
-        if not self.ancestral:
+        """The ancestral sampler's draws: one generator per transition seeded
+        from both keyframe seeds, one call [N, B, h, w, c] over the fused
+        batch (edges, then stems in placement order)."""
+        if not self.steps.ancestral:
             return None
         if tree.path != "fused":
             raise ValueError(f"ancestral draws are laid out for the fused path, the program took {tree.path!r}")
         base = (int(self.req.seed1) * 1_000_003 + int(self.req.seed2)) & 0x7FFFFFFF
         gen = torch.Generator(device=self.m.device).manual_seed((base * 1_000_003) % (2 ** 63))
-        return torch.randn((self.N, len(tree.fracts), self.h, self.w, 4), generator=gen, device=self.m.device)
+        return torch.randn((self.N, len(tree.fracts)) + self.m.arch.latent_shape(self.cfg), generator=gen,
+                           device=self.m.device)
 
     def _run(self, tree: Tree) -> dict:
         run = self.cfg["run"]
@@ -171,11 +114,11 @@ class Transition:
         policy = self.policy
         draws = self._draws(tree)
         # edges: both rows over all N steps
-        x = torch.cat([self._noise(self.req.seed1), self._noise(self.req.seed2)])
+        x = torch.cat([self.steps.noise(self.req.seed1), self.steps.noise(self.req.seed2)])
         traj = {0.0: [], 1.0: []}
         for i in range(N):
-            eps = self._eps(x, i, [0.0, 1.0])
-            x = self._step(x, eps, i, None if draws is None else draws[i, 0:2])
+            out = self.steps.output(x, i, [0.0, 1.0])
+            x = self.steps.step(x, out, i, None if draws is None else draws[i, 0:2])
             traj[0.0].append(x[0:1])
             traj[1.0].append(x[1:2])
         fr, inj = [0.0, 1.0], [0, 0]
@@ -212,8 +155,8 @@ class Transition:
             for i in range(idx, N):
                 if i > idx:
                     x = sampler.slerp(x, mix(i - 1), coeff[i])
-                eps = self._eps(x, i, order)
-                x = self._step(x, eps, i, None if draws is None else draws[i, row:row + k])
+                out = self.steps.output(x, i, order)
+                x = self.steps.step(x, out, i, None if draws is None else draws[i, row:row + k])
                 for r, f in enumerate(order):
                     traj[f].append(x[r:r + 1])
             row += k

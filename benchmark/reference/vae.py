@@ -1,5 +1,8 @@
-"""Plain SDXL VAE decoder (diffusers AutoencoderKL.decode semantics),
-float32, with HF checkpoint key names (post_quant_conv, decoder.*).
+"""Plain AutoencoderKL decoder (diffusers AutoencoderKL.decode semantics),
+float32, with HF checkpoint key names (post_quant_conv, decoder.*). The
+configuration's `shift_factor` (absent or null: none) is added after the
+division by `scaling_factor`; `use_post_quant_conv` false (absent: true)
+leaves post_quant_conv out, as SD3's decoder does.
 
 A frozen copy of the repository's test reference (tests/torch_ref_vae.py),
 reading the benchmark's configuration file, with the mid-block attention
@@ -105,14 +108,19 @@ class VAEDecoder(nn.Module):
         p = prec or Precision()
         self.cfg = cfg
         self.decoder = Decoder(cfg, p)
-        self.post_quant_conv = Conv2d(cfg["latent_channels"], cfg["latent_channels"], 1, prec=p)
+        if cfg.get("use_post_quant_conv", True):
+            self.post_quant_conv = Conv2d(cfg["latent_channels"], cfg["latent_channels"], 1, prec=p)
 
     def forward(self, latents_bhwc: torch.Tensor) -> torch.Tensor:
-        """Final latents [B,h,w,4] → uint8 images [B,H,W,3]: divided by the
-        scaling factor, decoded, clamped to [-1,1], then
-        floor((x/2 + 1/2)·255 + 1/2)."""
+        """Final latents [B,h,w,c] → (uint8 images [B,H,W,3], [-1,1] images):
+        divided by the scaling factor, shifted, decoded, clamped to [-1,1],
+        then floor((x/2 + 1/2)·255 + 1/2)."""
         z = latents_bhwc.float().permute(0, 3, 1, 2) / self.cfg["scaling_factor"]
-        img = self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1).clamp(-1.0, 1.0)
+        if self.cfg.get("shift_factor") is not None:
+            z = z + self.cfg["shift_factor"]
+        if hasattr(self, "post_quant_conv"):
+            z = self.post_quant_conv(z)
+        img = self.decoder(z).permute(0, 2, 3, 1).clamp(-1.0, 1.0)
         return pm1_to_uint8(img), img
 
 

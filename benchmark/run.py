@@ -16,7 +16,8 @@ its top operations, then the host too, whose ranges attribute device time
 to the models and name the idle gaps; it reports the per-layer metrics,
 the host-clock ones from the transitions after the profiles.
 Everything is named by BENCHMARK.json and found by name: the configuration
-file, the traffic mix, the cell's check file and one reader per metric.
+file, the traffic mix, the cell's check file, one reader per metric, and
+the configuration's architecture modules (benchmark/architecture.py).
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import json
 import os
 import sys
 import time
+
+from benchmark import architecture
 
 T_START = time.perf_counter()
 ROOT = os.getcwd()
@@ -45,10 +48,13 @@ def load(path: str, root: str = ROOT) -> dict:
 
 
 def cell_files(bench: dict, workload: str, root: str = ROOT) -> tuple[dict, dict, dict, dict]:
-    """(cell, configuration, traffic mix, check file) of a cell by name."""
+    """(cell, configuration, traffic mix, check file) of a cell by name; a
+    configuration whose architecture lacks a module is refused."""
     cell = next(w for w in bench["workloads"] if w["name"] == workload)
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    return (cell, load(conf["file"], root), load(f"benchmark/traffic/{cell['traffic']}.json", root),
+    cfg = load(conf["file"], root)
+    architecture.check(cfg)
+    return (cell, cfg, load(f"benchmark/traffic/{cell['traffic']}.json", root),
             load(f"benchmark/checks/{workload}.json", root))
 
 

@@ -1,6 +1,7 @@
-"""The system under test: the port's holder and engine, built from a
-configuration file and the run's seed, and one transition as a client
-calls it. The only module of the benchmark that imports the program.
+"""The system under test: the program's engine, built by the
+configuration's architecture module (benchmark/systems/<architecture>.py)
+from the configuration and the run's seed and set to the configuration's
+transition, and one transition as a client calls it.
 """
 from __future__ import annotations
 
@@ -10,49 +11,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import calls, weights
-from benchmark.reference import clip as ref_clip, unet as ref_unet, vae as ref_vae
-
-
-def _dtype(name: str) -> torch.dtype:
-    dtype = getattr(torch, name, None)
-    if not isinstance(dtype, torch.dtype):
-        raise ValueError(f"no torch dtype {name!r}")
-    return dtype
-
-
-def _reference_names(cfg: dict) -> dict:
-    """(name, shape) lists of the reference's four parts, built on meta."""
-    return {
-        "unet": weights.names_of(ref_unet.UNet(cfg["unet"])),
-        "vae": weights.names_of(ref_vae.VAEDecoder(cfg["vae"])),
-        "clip1": weights.names_of(ref_clip.TextEncoder(dict(cfg["text_encoder"], projection=False))),
-        "clip2": weights.names_of(ref_clip.TextEncoder(dict(cfg["text_encoder_2"], projection=True))),
-    }
-
-
-def _check_spec(cfg: dict, spec) -> None:
-    """The port's spec is the configuration's (weight shapes are checked
-    name by name when the weights are filled)."""
-    u, v, run = cfg["unet"], cfg["vae"], cfg["run"]
-    pairs = [
-        (spec.unet.block_out_channels, tuple(u["block_out_channels"])),
-        (spec.unet.num_attention_heads, tuple(u["attention_head_dim"])),
-        (spec.unet.transformer_layers_per_block, tuple(u["transformer_layers_per_block"])),
-        (spec.unet.layers_per_block, u["layers_per_block"]),
-        (spec.unet.cross_attention_dim, u["cross_attention_dim"]),
-        (spec.unet.addition_time_embed_dim, u["addition_time_embed_dim"]),
-        (spec.vae.block_out_channels, tuple(v["block_out_channels"])),
-        (spec.vae.scaling_factor, v["scaling_factor"]),
-        (spec.clip1.num_layers, cfg["text_encoder"]["num_hidden_layers"]),
-        (spec.clip2.num_layers, cfg["text_encoder_2"]["num_hidden_layers"]),
-        (spec.clip2.hidden_size, cfg["text_encoder_2"]["hidden_size"]),
-        (spec.scheduler.timestep_spacing, cfg["scheduler"]["timestep_spacing"]),
-        (spec.default_size, (run["width"], run["height"])),
-    ]
-    bad = [(a, b) for a, b in pairs if a != b]
-    if bad:
-        raise ValueError(f"the port's spec {spec.name!r} differs from the configuration: {bad}")
+from benchmark import architecture, calls
 
 
 @dataclasses.dataclass
@@ -61,7 +20,7 @@ class Record:
 
     request: object
     keyframes: np.ndarray  # uint8 [K,H,W,3]
-    finals: list  # device final latents, one [1,h,w,4] per keyframe
+    finals: list  # device final latents, one [1,h,w,c] per keyframe
     fracts: list
     idx: list
     path: str
@@ -74,29 +33,9 @@ class Record:
 
 class System:
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
-        from latentblending_tpu_torch.engine.blending import BlendingEngine
-        from latentblending_tpu_torch.ops.scheduler import scheduler_config_from_hf
-        from latentblending_tpu_torch.precision import disable_tf32
-        from latentblending_tpu_torch.runtime.holder import SPECS, SDXLHolder, build_modules
-
-        disable_tf32()
         run = cfg["run"]
-        spec = SPECS[cfg["port_spec"]]
-        # the sampler is the configuration's scheduler (the spec's own is the
-        # fallback for a class the port does not know, which is refused)
-        sched = scheduler_config_from_hf(cfg["scheduler"], spec.scheduler)
-        if sched is spec.scheduler:
-            raise ValueError(f"the port has no sampler for {cfg['scheduler']['_class_name']!r}")
-        spec = dataclasses.replace(spec, scheduler=sched)
-        _check_spec(cfg, spec)
-        dtype, vae_dtype = _dtype(run["dtypes"]["unet"]), _dtype(run["dtypes"]["vae"])
-        mods = build_modules(spec, dtype, device, vae_dtype)
-        names = _reference_names(cfg)
-        for i, part in enumerate(weights.PARTS):
-            weights.fill(dict(mods[part].state_dict()), names[part], seed, i,
-                         weights.part_dtype(cfg, part), torch.device(device))
-        self.holder = SDXLHolder(spec, mods, dtype=dtype, vae_dtype=vae_dtype, device=device)
-        eng = BlendingEngine(self.holder, run_benchmark=run["engine"]["run_benchmark"])
+        self.arch = architecture.load("systems", cfg)
+        eng = self.arch.build(cfg, seed, device)
         eng.set_dimensions((run["width"], run["height"]))
         eng.set_num_inference_steps(run["num_inference_steps"])
         b = run["engine"]["branching"]
@@ -110,6 +49,7 @@ class System:
                 cf["power"], cf["range"], cf["decay"]) or eng.guidance_scale_base != run["guidance_scale"]:
             raise ValueError("the engine's crossfeed or guidance is not the configuration's")
         self.engine = eng
+        self.cuda = torch.device(device).type == "cuda"
         self.call = calls.load(traffic["call"]).Call(traffic)
         self.plan = plan
         self._n = 0
@@ -123,7 +63,7 @@ class System:
             eng.set_negative_prompt(req.negative)
             eng.set_prompt1(req.prompt1)
             eng.set_prompt2(req.prompt2)
-            if self.holder.device.type == "cuda":
+            if self.cuda:
                 torch.cuda.synchronize()
         t1 = time.perf_counter()
         with torch.profiler.record_function("bench::transition"):
@@ -144,10 +84,11 @@ class System:
         )
 
     def module_hooks(self) -> list:
-        """Forward hooks that put the UNet's and the VAE decoder's launches in
-        record_function ranges (bench::unet, bench::vae), for traced runs."""
+        """Forward hooks that put the denoiser's and the decoder's launches
+        (the architecture module's `hooked`) in record_function ranges
+        (bench::unet, bench::vae), for traced runs."""
         handles = []
-        for name, mod in (("bench::unet", self.holder.unet), ("bench::vae", self.holder.vae.decoder)):
+        for name, mod in zip(("bench::unet", "bench::vae"), self.arch.hooked(self.engine)):
             stack = []
 
             def pre(_m, _a, name=name, stack=stack):
@@ -164,4 +105,4 @@ class System:
     def close(self) -> None:
         """Let go of the program's modules and state (what the calls wrote
         stays until `self.call` is cleaned up)."""
-        self.engine = self.holder = None
+        self.engine = None

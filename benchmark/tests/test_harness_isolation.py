@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from benchmark.tests.tiny import REPO
 
 BENCH = os.path.join(REPO, "benchmark")
@@ -48,8 +50,37 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_only_the_system_module_and_tests_import_the_program():
+    """The program is imported by the system module, the architectures'
+    system modules (benchmark/systems/) and tests alone."""
     users = {os.path.relpath(p, BENCH) for p in _sources() if PORT in _imports(p)}
-    assert {u for u in users if not u.startswith("tests" + os.sep)} == {"system.py"}
+    others = {u for u in users if not u.startswith(("tests" + os.sep, "systems" + os.sep))}
+    assert others <= {"system.py"}, others
+    assert any(u.startswith("systems" + os.sep) for u in users)
+
+
+@pytest.mark.parametrize("kind", ["systems", "reference", "yardstick"])
+def test_an_unknown_architecture_is_refused_naming_its_module(kind):
+    from benchmark import architecture
+
+    cfg = {"name": "c", "architecture": "nowhere"}
+    with pytest.raises(ValueError, match=f"benchmark/{kind}/nowhere.py"):
+        architecture.load(kind, cfg)
+    with pytest.raises(ValueError, match=f"benchmark/{kind}/nowhere.py"):
+        architecture.check(cfg)
+
+
+def test_a_cell_of_an_unknown_architecture_is_refused_at_set_up(tmp_path):
+    import json
+
+    from benchmark import run
+    from benchmark.tests.tiny import tiny_root
+
+    bench = tiny_root(str(tmp_path), {"t.turbo": ("turbo", "transition")})
+    path = tmp_path / "benchmark" / "configs" / "tiny-turbo.json"
+    cfg = json.loads(path.read_text())
+    path.write_text(json.dumps(dict(cfg, architecture="nowhere")))
+    with pytest.raises(ValueError, match="benchmark/systems/nowhere.py.*benchmark/reference/nowhere.py"):
+        run.run_cell(bench, "t.turbo", 1, 0.0, False, "cpu", root=str(tmp_path))
 
 
 def test_nothing_reads_the_jax_harness():
@@ -65,7 +96,8 @@ def test_a_run_loads_no_forbidden_module():
     """Import every module a run imports, the program's included, in a fresh
     interpreter, and look at sys.modules."""
     code = ("import sys, benchmark.run, benchmark.check, benchmark.system, benchmark.calibrate, "
-            "benchmark.trace, benchmark.traffic\n"
+            "benchmark.trace, benchmark.traffic, benchmark.systems.sdxl, benchmark.reference.sdxl, "
+            "benchmark.yardstick.sdxl\n"
             "import benchmark.metrics.mfu\n"
             "from latentblending_tpu_torch.engine.blending import BlendingEngine\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & %r))" % FORBIDDEN)

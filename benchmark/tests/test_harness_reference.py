@@ -36,11 +36,13 @@ def root(tmp_path_factory):
 @pytest.mark.parametrize("kind", ["turbo", "base"])
 def test_weights_land_under_the_programs_names(kind):
     from latentblending_tpu_torch.runtime.holder import SPECS, build_modules
-    from benchmark.system import _reference_names
+    from benchmark.reference import sdxl
 
     cfg = tiny_config(kind)
     mods = build_modules(SPECS[cfg["port_spec"]], torch.bfloat16, "cpu")
-    for part, names in _reference_names(cfg).items():
+    ref = sdxl.parts(cfg)
+    assert [p for p, _ in sdxl.PARTS] == ["unet", "vae", "clip1", "clip2"]  # the order that seeds the draws
+    for part, names in ((p, weights.names_of(ref[p])) for p, _ in sdxl.PARTS):
         have = {k: tuple(v.shape) for k, v in mods[part].state_dict().items()}
         for name, shape in names:
             assert have.get(name) == shape, (part, name)
@@ -60,6 +62,36 @@ def test_weights_are_a_function_of_seed_and_name():
     c = {k: torch.empty_like(v) for k, v in a.items()}
     weights.fill(c, names, 6, 0, "float32", "cpu")
     assert not torch.equal(a["x.weight"], c["x.weight"])
+
+
+def _vae(**keys):
+    from benchmark.reference.vae import VAEDecoder
+
+    cfg = dict(latent_channels=2, block_out_channels=[8, 8], layers_per_block=1, norm_num_groups=4,
+               out_channels=3, scaling_factor=2.0, **keys)
+    m = VAEDecoder(cfg).to_empty(device="cpu")
+    m.decoder = torch.nn.Identity()  # what reaches the decoder, clamped, is the [-1,1] image
+    return m
+
+
+@pytest.mark.parametrize("keys, want", [
+    # z / 2 + 0.25, no post_quant_conv: [0.1 + 0.25, -0.6 + 0.25]
+    ({"shift_factor": 0.25, "use_post_quant_conv": False}, [0.35, -0.35]),
+    # absent keys: post_quant_conv on z / 2 (weights [[1, 2], [0, -1]], bias [0.5, 0]), no shift
+    ({}, [0.1 * 1 - 0.6 * 2 + 0.5, 0.6]),
+    ({"shift_factor": None}, [0.1 * 1 - 0.6 * 2 + 0.5, 0.6]),
+])
+def test_vae_shift_factor_and_post_quant_conv(keys, want):
+    m = _vae(**keys)
+    assert hasattr(m, "post_quant_conv") == keys.get("use_post_quant_conv", True)
+    if hasattr(m, "post_quant_conv"):
+        with torch.no_grad():
+            m.post_quant_conv.weight.copy_(torch.tensor([[1.0, 2.0], [0.0, -1.0]])[:, :, None, None])
+            m.post_quant_conv.bias.copy_(torch.tensor([0.5, 0.0]))
+    z = torch.tensor([0.2, -1.2]).expand(1, 2, 2, 2)
+    with torch.no_grad():
+        _, pm1 = m(z)
+    assert torch.allclose(pm1, torch.tensor(want).expand(1, 2, 2, 2), atol=1e-6), pm1
 
 
 def test_hash_tokenizer_is_the_programs():

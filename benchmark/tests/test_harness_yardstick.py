@@ -8,7 +8,7 @@ import os
 import pytest
 
 from benchmark.tests.tiny import REPO
-from benchmark.yardstick import flops, roofline, work
+from benchmark.yardstick import flops, roofline, sdxl, work
 
 
 def _cfg(name):
@@ -39,6 +39,16 @@ def test_transition_work():
     assert roofline.unet_attention_sites(base["unet"], 128, 128) == [(4096, 10, 10), (1024, 20, 60)]
     # 28 needed row-steps of 40 K2 calls at B=12 (10 per eval), and 12 decodes
     want = 28 / 12 * 32.57e-6 * 10 + 3 * 832.96e-6
-    assert work.attention_bound_seconds(turbo) == pytest.approx(want, rel=1e-3)
+    assert sdxl.attention_bound_seconds(turbo) == pytest.approx(want, rel=1e-3)
     want_mfu = 28 * 1.589e12 / 989e12 + 12 * 2.515e12 / 165e12
-    assert work.model_seconds_at_peak(turbo) == pytest.approx(want_mfu, rel=1e-3)
+    assert sdxl.model_seconds_at_peak(turbo) == pytest.approx(want_mfu, rel=1e-3)
+
+
+def test_decode_flops_read_post_quant_conv_and_shift():
+    """post_quant_conv is one 1x1 conv of the latent channels, 2·h·w·c², left
+    out where `use_post_quant_conv` is false; the shift is not counted."""
+    vae = dict(_cfg("sdxl-turbo-512")["vae"], latent_channels=16)
+    full = flops.vae_decode_flops(vae, 1024, 1024)
+    assert flops.vae_decode_flops(dict(vae, use_post_quant_conv=True), 1024, 1024) == full
+    assert flops.vae_decode_flops(dict(vae, shift_factor=0.0609), 1024, 1024) == full
+    assert full - flops.vae_decode_flops(dict(vae, use_post_quant_conv=False), 1024, 1024) == 2 * 128 * 128 * 16 * 16

@@ -2,30 +2,24 @@
 the reference.
 
 Each model part takes one standard normal draw, in one call, from a
-torch.Generator on the device, seeded from the run's seed and the part,
+torch.Generator on the device, seeded from the run's seed and the part's
+index in its architecture's PARTS (benchmark/reference/<architecture>.py),
 laid over its tensors in sorted name order, so the values depend only on
 the seed and on the reference architecture's names and shapes (HF key
 names, which the program's modules share). Matrices and convolutions are
 scaled by fan_in^-1/2, biases by 0.05; norm scales are 1 + 0.1 n and norm
-shifts 0.1 n. A part held in bfloat16 by the configuration (the UNet, its
-norms excepted) is rounded to bfloat16, which the reference computes on in
-float32. Tensors the program has and the reference does not (the VAE's
-encoder) take a second draw of the same part.
+shifts 0.1 n. A part held in bfloat16 by the configuration (SDXL's UNet,
+its norms excepted) is rounded to bfloat16, which the reference computes
+on in float32. Tensors the program has and the reference does not (the
+VAE's encoder) take a second draw of the same part.
 """
 from __future__ import annotations
 
 import torch
 
-PARTS = ("unet", "vae", "clip1", "clip2")
-
-
 def is_norm(name: str) -> bool:
     """A GroupNorm or LayerNorm parameter (its module's name holds "norm")."""
     return "norm" in name.rsplit(".", 2)[-2]
-
-
-def part_dtype(cfg: dict, part: str) -> str:
-    return cfg["run"]["dtypes"]["unet" if part == "unet" else ("vae" if part == "vae" else "clip")]
 
 
 def _values(flat: torch.Tensor, offset: int, name: str, shape) -> torch.Tensor:
@@ -70,3 +64,13 @@ def fill(tensors: dict[str, torch.Tensor], names: list[tuple[str, tuple]], seed:
 
 def names_of(module: torch.nn.Module) -> list[tuple[str, tuple]]:
     return sorted((k, tuple(t.shape)) for k, t in module.state_dict().items())
+
+
+def fill_parts(modules: dict, reference: dict, parts, cfg: dict, seed: int, device) -> None:
+    """Fill each part of `modules` (name → module) with its draw over the
+    names of the same part of `reference` (the reference's modules, on meta
+    or not): `parts` the architecture's (name, dtype key) pairs in order,
+    the dtype the configuration's run "dtypes" under that key."""
+    for i, (part, key) in enumerate(parts):
+        fill(dict(modules[part].state_dict()), names_of(reference[part]), seed, i, cfg["run"]["dtypes"][key],
+             device)

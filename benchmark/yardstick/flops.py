@@ -1,6 +1,6 @@
-"""Analytic FLOP counts of the SDXL UNet and VAE decode (matmul and conv
-MACs x 2; norms, elementwise work and softmax are left out, under 1% of
-the total).
+"""Analytic FLOP counts of the SDXL UNet and the AutoencoderKL decode
+(matmul and conv MACs x 2; norms, elementwise work and softmax are left
+out, under 1% of the total).
 
 Copied from the port's ops/flops.py, reading the benchmark's own
 configuration files (HF key names) instead of the port's dataclasses, so a
@@ -98,11 +98,13 @@ def unet_forward_flops(unet: dict, h_lat: int, w_lat: int, batch: int, ctx_len: 
 
 
 def vae_decode_flops(vae: dict, h_img: int, w_img: int, batch: int = 1) -> float:
-    """FLOPs of one VAE decode to [h_img, w_img, 3]."""
+    """FLOPs of one VAE decode to [h_img, w_img, 3]: post_quant_conv unless
+    `use_post_quant_conv` is false (absent: true); `shift_factor` is an
+    elementwise add, not counted."""
     chans = list(reversed(vae["block_out_channels"]))  # decoder order
     lat = vae["latent_channels"]
     h, w = h_img // 8, w_img // 8
-    f = _conv(h, w, lat, lat, 1)  # post_quant
+    f = _conv(h, w, lat, lat, 1) if vae.get("use_post_quant_conv", True) else 0.0  # post_quant
     f += _conv(h, w, lat, chans[0])  # conv_in
     f += 2 * _resnet(h, w, chans[0], chans[0], None)
     L, c = h * w, chans[0]
