@@ -28,9 +28,14 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    [2|10|12|40,64,64,4], [2|3|90,128,128,4] (bf16, [2,…] also f32), ragged
    rows and a misaligned row (the scalar path), exact 0/1 fractions; K1
    slerp_tree_step at [12,64,64,4] with and without a window row, pins
-   and a self-parent row, at [5|6|10,128,128,4] and on ragged rows; the K1
-   wrappers' refusals; K2/K3 at every path shape (K2 up to the base CFG
-   batch [20,4096,10,64]) plus a peaked case (q scaled by 4), K3 in f32
+   and a self-parent row, at [5|6|10,128,128,4], at SD3.5-Large's
+   16-channel [6|12,128,128,16] and on ragged rows; the K1 wrappers'
+   refusals; K2/K3 at every path shape (K2 up to the base CFG batch
+   [20,4096,10,64], and SD3.5-Large's joint attention [4|12,4429,38,64]
+   on K2's tail instantiation, with [2,77|4480,38,64] and a peaked
+   [3,200,38,64]; at a length that ends in a partial key tile, the plain
+   result without that tile must fall outside the bound) plus a peaked
+   case (q scaled by 4), K3 in f32
    also at [1,64|128|192,1,512] (2, 4 and 6 key tiles), and at the
    distributed phase's local shapes [5,1024,10,64] and [10,1024,5,64]; K2 in f32 at
    [12|2,1024,10,64], [10,…] peaked and [4,4096,10,64], K3 in bf16 at
@@ -41,7 +46,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    512² (batch 4) and SDXL-base 1024² (batch 1), against F.conv2d in
    float64 (cuDNN's FFMA and TF32 errors beside it, TF32 outside the
    bound), at least C1_MIN_SPEEDUP times cuDNN's FFMA kernel, the calls of
-   a decode summed, then at an f32 UNet's shapes, narrow and ragged images;
+   a decode summed, then at an f32 UNet's shapes, narrow and ragged images
+   and SD3.5-Large's decoder conv_in (16 -> 512 channels at 128²);
    C1's wrapper's refusals (bf16, stride 2, Cin 4, non-contiguous).
    The f32 attention kernels are held to K3_REL_BOUND, C1 to
    C1_REL_BOUND, K2 bf16 to K2_ABS_BOUND and K3 bf16 to K3_BF16_REL_BOUND.
@@ -151,8 +157,16 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    again in turns (b, c, a, a, c, b) with the card's clock and power, one
    profiled run of each predictive path, and the cost model's predictions
    beside the measured walls;
-12. the multi-GPU layer (distributed_phase), once the turbo and base
-   holders are dropped: one NCCL rank in this process on mesh (1,1) runs
+12. drives SD3.5-Large 1024² (sd3_phase) once the turbo and base holders
+   are dropped: SD3Holder.from_random("sd35-large") at full width (MMDiT
+   8,056,627,520 and T5 encoder 4,762,310,656 parameters), the predictive
+   policy, set_branching(depth_strength=0.5, nmb_max_branches=6), the plan
+   [14,18,22,26] x [1,1,1,1]; the segmented fused-multi path cold and
+   warm: 6 keyframes, 5 finite similarities, the exact launches (tree step
+   28, K2 and K2_tail 1064, K3 6, C1 192: 32 a decode call), wall and
+   memory peak;
+13. the multi-GPU layer (distributed_phase), once the SD3 holder is
+   dropped: one NCCL rank in this process on mesh (1,1) runs
    SDXL-Turbo 512²'s run_transition(fixed_seeds=[420, 421]) on the
    per-level path with exactly the per-level launches, its keyframes bit
    for bit main_path's per-level ones; then two child processes
@@ -166,7 +180,7 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    transition and the walls, which are no multi-GPU speed (gloo stages
    every collective through host memory, on one card). K2 at the two
    local shapes is timed in the kernel phases;
-13. prints one JSON line with every kernel entry's numbers (K1 rows, K1
+14. prints one JSON line with every kernel entry's numbers (K1 rows, K1
    tree step, K2 bf16 and f32, K3 f32 and bf16, J1 and its RGB route,
    J2, J3, and K2 at the two meshes' local shapes), then the final line
    {"ok": true, "device": {...}}.
@@ -520,11 +534,25 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
 
     q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
     q, k, v = (q * peak).to(dtype), k.to(dtype), v.to(dtype)
+    B, L, H, d = shape
+
+    def plain(q, k, v):
+        # one batch row at a time where the whole batch's f32 scores would
+        # pass 8 GB (SD3's joint attention, [12, 4429, 38, 64]: 36 GB)
+        if B * H * L * L * 4 <= 8e9:
+            return attention.attention_reference(q, k, v)
+        return torch.cat([attention.attention_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(B)])
+
     got = attention.flash_attention(q, k, v).float()
-    want = attention.attention_reference(q.float(), k.float(), v.float())
+    want = plain(q.float(), k.float(), v.float())
+    # at a length that ends in a partial key tile (K2's tail instantiation),
+    # the plain result without that tile: what a kernel that skipped it would
+    # give, which must fall outside the bound
+    cut = L - L % 128 if dtype == torch.bfloat16 and d == 64 else L
+    dropped = (plain(q.float(), k[:, :cut].float(), v[:, :cut].float()) - want).abs().max().item() \
+        if 0 < cut < L else None
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    B, L, H, d = shape
     flops = 4 * B * H * L * L * d
     nbytes = 4 * B * L * H * d * q.element_size()
     case = {
@@ -532,6 +560,8 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
         "max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
         "finite": bool(torch.isfinite(got).all()),
     }
+    if dropped is not None:
+        case["tail_tile_dropped_abs_err"] = dropped
     del got, want
     if dtype == torch.bfloat16:
         case.update(_bound(nbytes, flops, "bf16"))
@@ -540,7 +570,8 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
             case["ok"] = case["finite"] and case["max_rel_err"] <= K3_BF16_REL_BOUND
         else:
             case["bound"] = K2_ABS_BOUND
-            case["ok"] = case["finite"] and case["max_abs_err"] <= K2_ABS_BOUND
+            case["ok"] = (case["finite"] and case["max_abs_err"] <= K2_ABS_BOUND
+                          and (dropped is None or dropped > K2_ABS_BOUND))
     else:
         # the f32 kernels run 3xTF32 on the tensor cores: three TF32 products
         # for each f32 one, so the bound is 3 x flops over the TF32 peak; the bounds
@@ -552,8 +583,7 @@ def _attention_case(torch, g, shape, dtype, peak: float) -> dict:
         case["bound"] = K3_REL_BOUND
         case["ok"] = case["finite"] and case["max_rel_err"] <= K3_REL_BOUND
     library, case["library_backend"] = _sdpa(torch, q, k, v)
-    _timings(torch, case, lambda: attention.flash_attention(q, k, v),
-             lambda: attention.attention_reference(q, k, v), library)
+    _timings(torch, case, lambda: attention.flash_attention(q, k, v), lambda: plain(q, k, v), library)
     name = {(64, torch.bfloat16): "K2 attention d64", (64, torch.float32): "K2 attention d64 f32",
             (512, torch.float32): "K3 attention d512", (512, torch.bfloat16): "K3 attention d512 bf16"}[(d, dtype)]
     print(name, json.dumps(case), flush=True)
@@ -599,9 +629,10 @@ C1_DECODER = [(512, 512, 64, 10), (512, 512, 128, 7), (512, 512, 256, 1), (512, 
               (256, 256, 512, 1), (256, 128, 512, 1), (128, 128, 512, 5)]
 # (the other shapes C1 takes: an f32 UNet's levels at 512² (320 output
 # channels: half an output tile), its concatenated skips, narrow images
-# (runs of 2 x 32 and 4 x 16 pixels) and ragged edges)
+# (runs of 2 x 32 and 4 x 16 pixels), ragged edges, and SD3.5-Large 1024²'s
+# decoder conv_in: its 16 latent channels in take C1, once a decode call)
 C1_OTHER = [(2, 320, 320, 64, 64), (2, 640, 640, 32, 32), (2, 2560, 1280, 16, 16), (2, 960, 320, 64, 64),
-            (1, 64, 128, 33, 100), (3, 8, 64, 5, 12), (1, 16, 192, 3, 4)]
+            (1, 64, 128, 33, 100), (3, 8, 64, 5, 12), (1, 16, 192, 3, 4), (1, 16, 512, 128, 128)]
 # C1 launches: one a stride-1 3x3 convolution of an f32 module that the
 # route takes (tests/test_torch_conv.py holds it to these counts): 31 a
 # decode call of an f32 VAE (C1_DECODER), 34 an eval of an f32 SDXL UNet
@@ -739,7 +770,12 @@ def kernel_phases(torch) -> dict:
                        # SDXL-base 1024² segmented scan: the last segment's
                        # live rows, and the first stem segment's
                        _tree_case(torch, g, (10, 128, 128, 4), bf16, window=False),
-                       _tree_case(torch, g, (5, 128, 128, 4), bf16, window=False)]}
+                       _tree_case(torch, g, (5, 128, 128, 4), bf16, window=False),
+                       # SD3.5-Large 1024²'s segmented scan: 16-channel rows,
+                       # 4x a base row (four register chunks a CTA), the
+                       # last segment's 6 live rows, and 12
+                       _tree_case(torch, g, (6, 128, 128, 16), bf16, window=False, one_chunk=False),
+                       _tree_case(torch, g, (12, 128, 128, 16), bf16, window=False, one_chunk=False)]}
     _wrapper_refusals(torch, g)
     # K2 / K3 at every shape of the path (SDXL-Turbo 512²: UNet batches 2,
     # 10 and, fused, 12; VAE decode chunks 2-4) and of SDXL-base 1024²
@@ -750,7 +786,13 @@ def kernel_phases(torch) -> dict:
     # scan's largest, 20
     k2_cases = [((10, 1024, 10, 64), 1.0), ((2, 1024, 10, 64), 1.0), ((12, 1024, 10, 64), 1.0),
                 ((2, 4096, 10, 64), 1.0), ((2, 1024, 20, 64), 1.0), ((10, 1024, 10, 64), 4.0),
-                ((4, 4096, 10, 64), 1.0), ((20, 4096, 10, 64), 1.0), ((20, 1024, 20, 64), 1.0)]
+                ((4, 4096, 10, 64), 1.0), ((20, 4096, 10, 64), 1.0), ((20, 1024, 20, 64), 1.0),
+                # SD3.5-Large 1024²'s joint attention, 4096 + 333 tokens on
+                # K2's tail instantiation: the edges' CFG batch 4 and the
+                # segmented scan's largest, 12; the tail alone, two batches
+                # reading each other's bounds, and a peaked ragged case
+                ((4, 4429, 38, 64), 1.0), ((12, 4429, 38, 64), 1.0), ((2, 77, 38, 64), 1.0),
+                ((2, 4480, 38, 64), 1.0), ((3, 200, 38, 64), 4.0)]
     # (+ the shortest sequences K3's 64-row query tiles take: 2, 4 and 6
     # of its 32-key tiles, the peeled last two alone and after loop steps)
     k3_cases = [((4, 4096, 1, 512), 1.0), ((2, 4096, 1, 512), 1.0), ((1, 16384, 1, 512), 1.0),
@@ -862,8 +904,8 @@ def small_input_check(torch) -> None:
 
 
 # J1 and J3 count calls, J1_frames and J3_frames the frames those calls coded
-_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J1_frames", "J2", "J3",
-               "J3_frames")
+_COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_tail", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J1_frames", "J2",
+               "J3", "J3_frames")
 
 
 _COUNTS_ZERO: dict = {}  # the profiling registry's counters at the last _zero_counts
@@ -896,13 +938,15 @@ _C1_LAUNCHES: dict = {}  # a counted path's label -> C1's launches in it (the ke
 
 def _check_c1(be, counts: dict, c1: int, k2_per_eval: int, label: str) -> None:
     """C1 ran once for every stride-1 3x3 convolution of the f32 modules:
-    C1_PER_DECODE a decode call of an f32 VAE (K3's launches) and
+    C1_PER_DECODE a decode call of an f32 VAE (K3's launches; one more where
+    the latents have 16 channels, SD3's, whose conv_in then takes C1) and
     C1_PER_UNET_EVAL an eval of an f32 UNet (K2 f32's over k2_per_eval),
     in the counted run and in the last run's report."""
-    want = C1_PER_DECODE * counts["K3"] + C1_PER_UNET_EVAL * counts["K2_f32"] // k2_per_eval
+    per_decode = C1_PER_DECODE + (be.dh.spec.vae.latent_channels % 8 == 0)
+    want = per_decode * counts["K3"] + C1_PER_UNET_EVAL * counts["K2_f32"] // k2_per_eval
     in_report = be.last_report.counters.get("C1", 0)
     print(f"{label}: C1 launches {c1}, in the last run's report {in_report} (expected {want}: "
-          f"{C1_PER_DECODE} x {counts['K3']} f32 decode calls + {C1_PER_UNET_EVAL} x "
+          f"{per_decode} x {counts['K3']} f32 decode calls + {C1_PER_UNET_EVAL} x "
           f"{counts['K2_f32'] // k2_per_eval} f32 UNet evals)", flush=True)
     if c1 != want or in_report != want:
         raise AssertionError(f"{label}: C1 launched {c1} times ({in_report} in the report), expected {want}")
@@ -919,9 +963,12 @@ def _expected_launches(be, path: str, k2_per_eval: int, recycled: int = 0) -> di
     paths (a recycled edge 1 rides along as a window); on the per-level
     path slerp_rows once per step of each denoise call (the edges' unless
     both are recycled, then each round's) and once per round for the
-    parental mix; K2 k2_per_eval times per UNet eval, in the UNet's dtype;
-    K3 once per VAE decode call (decode_chunk keyframes each; a recycled
-    edge's keyframe is still decoded), in the VAE's dtype."""
+    parental mix; K2 k2_per_eval times per denoiser eval, in its dtype
+    (SD3's joint sequence, image patches + 77 CLIP + T5's tokens, is no
+    multiple of 128, so its launches are K2_tail ones too; every SDXL UNet
+    attention length is); K3 once per VAE decode call (decode_chunk
+    keyframes each; a recycled edge's keyframe is still decoded), in the
+    VAE's dtype."""
     N = be.dh.num_inference_steps
     dc = be.dh.decode_chunk
     n_kf = 2 + sum(int(n) for n in be.list_nmb_stems)
@@ -932,13 +979,14 @@ def _expected_launches(be, path: str, k2_per_eval: int, recycled: int = 0) -> di
         fc = int(os.environ.get("LB_FETCH_CHUNK", "4"))
         out.update({"K1_tree": N, k2: N * k2_per_eval,
                     k3: sum(_ceil(min(fc, n_kf - j), dc) for j in range(0, n_kf, fc))})
-        return out
-    rounds = [(int(idx), k) for idx, n in zip(be.list_idx_injection, be.list_nmb_stems)
-              for k in be._round_sizes(int(n))]
-    edge_steps = 0 if recycled == 2 else N
-    evals = edge_steps + sum(N - idx for idx, _ in rounds)
-    out.update({"K1_rows": edge_steps + sum(N - idx + 1 for idx, _ in rounds), k2: evals * k2_per_eval,
-                k3: _ceil(2, dc) + sum(_ceil(k, dc) for _, k in rounds)})
+    else:
+        rounds = [(int(idx), k) for idx, n in zip(be.list_idx_injection, be.list_nmb_stems)
+                  for k in be._round_sizes(int(n))]
+        edge_steps = 0 if recycled == 2 else N
+        evals = edge_steps + sum(N - idx for idx, _ in rounds)
+        out.update({"K1_rows": edge_steps + sum(N - idx + 1 for idx, _ in rounds), k2: evals * k2_per_eval,
+                    k3: _ceil(2, dc) + sum(_ceil(k, dc) for _, k in rounds)})
+    out["K2_tail"] = out["K2"] if hasattr(be.dh, "mmdit") else 0
     return out
 
 
@@ -2413,6 +2461,47 @@ def base_phase(torch, turbo_dh) -> dict:
     return {name: r["counts"] for name, r in runs.items()}
 
 
+SD3_PLAN = ([14, 18, 22, 26], [1, 1, 1, 1])
+
+
+def sd3_phase(torch) -> dict:
+    """SD3.5-Large 1024² at full width (all 38 MMDiT blocks, T5-XXL, both
+    CLIP towers, the 16-channel f32 VAE; random weights from seed 0) through
+    BlendingEngine under the predictive policy, as the benchmark's
+    sd35l1024.predictive cell runs it: set_branching(depth_strength=0.5,
+    nmb_max_branches=6) at 28 steps gives the plan [14,18,22,26] x
+    [1,1,1,1] on the segmented fused-multi path. Counted, then warm: K1's
+    tree step once a step on [2..6,128,128,16] rows, K2 and K2_tail once a
+    block and eval at the joint length 4429 (CFG batches 4 to 12), K3 once
+    and C1 32 times a decode call. Returns the path's launches."""
+    from latentblending_tpu_torch.engine.blending import BlendingEngine
+    from latentblending_tpu_torch.runtime.holder import SD3Holder
+
+    t0 = time.perf_counter()
+    dh = SD3Holder.from_random("sd35-large", seed=0, dtype=torch.bfloat16, device="cuda")
+    be = BlendingEngine(dh, run_benchmark=False)
+    torch.cuda.synchronize()
+    n_mmdit, n_t5 = (sum(p.numel() for p in m.parameters()) for m in (dh.mmdit, dh.t5))
+    print(f"setup: SD3.5-Large holder (MMDiT {n_mmdit} params bf16, T5 encoder {n_t5} bf16, CLIP-L + bigG and "
+          f"the VAE f32) and engine in {time.perf_counter() - t0:.3f} s; allocated "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    if (n_mmdit, n_t5) != (8_056_627_520, 4_762_310_656):
+        raise AssertionError(f"SD3.5-Large: MMDiT {n_mmdit} and T5 {n_t5} parameters, not 8056627520 and 4762310656")
+    be.set_negative_prompt("blurry, low quality")  # read by the next embeddings
+    be.set_prompt1("photo of a forest at dawn, mist between the trees")
+    be.set_prompt2("photo of a city at night, neon lights in the rain")
+    be.set_branching(depth_strength=0.5, nmb_max_branches=6)
+    be.placement_policy = "predictive"
+    plan = (list(be.list_idx_injection), list(be.list_nmb_stems))
+    print(f"SD3.5-Large plan {plan}, guidance {be.guidance_scale_base} (CFG), {be.num_inference_steps} steps",
+          flush=True)
+    if plan != SD3_PLAN:
+        raise AssertionError(f"SD3.5-Large plan {plan}, expected {SD3_PLAN}")
+    label = "SD3.5-Large predictive, fused-multi"
+    run = _drive_path(torch, be, "fused-multi", label, dh.mmdit.cfg.num_layers)
+    return {label: run["counts"]}
+
+
 # The two-rank meshes' keyframes against the unsharded per-level run's, in
 # LSB of the uint8 RGB keyframes: the largest difference and the mean.
 # Set from the first run on the card (NVIDIA H100 80GB HBM3, 700.00 W):
@@ -2886,6 +2975,9 @@ def main() -> int:
     counts.update(f32_unet_phase(torch, be.dh))
     counts.update(base_phase(torch, be.dh))
     del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(sd3_phase(torch))
     gc.collect()
     torch.cuda.empty_cache()
     dist_counts, local = distributed_phase(torch, per_level_ref)

@@ -36,6 +36,16 @@
 // The tiles, BQ = 64 (one warpgroup), BK = 128, 2 stages, were the fastest
 // of six measured at the path's shapes (PERF.md): at B = 2 a 64-row tile
 // gives 320 CTAs on 132 SMs where a 128-row tile gives 160 (1.2 waves).
+//
+// Any sequence length (TAIL = true, chosen by the launcher when L is not a
+// multiple of BK; SD3's joint sequence at 1024^2 is 4096 + 333 = 4429):
+// the tensor maps are 4-d, [B][L][H][64], so each batch's rows end at its
+// box bounds and the TMA reads rows past L as zeros, never the next
+// batch's; the grid covers ceil(L / BQ) query tiles and ceil(L / BK) key
+// tiles, the last key tile's scores of keys >= L are set to -inf before
+// the row max (P = 0 there, and a zero V row adds nothing), and no output
+// row >= L is stored. With TAIL = false the kernel is the one above,
+// instruction for instruction.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,7 +77,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int BQ, int BK, int STAGES>
+// A K/V or Q tile: rows [row, row + box) of head h of batch b; the 3-d map
+// addresses rows in the [B*L] axis, the 4-d one within batch b.
+template <bool TAIL>
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uint64_t* bar, int h, int b, int L,
+                                          int row) {
+  if constexpr (TAIL)
+    lb::tma_load_4d(dst, map, bar, 0, h, row, b);
+  else
+    lb::tma_load_3d(dst, map, bar, 0, h, b * L + row);
+}
+
+template <int BQ, int BK, int STAGES, bool TAIL>
 __global__ void __launch_bounds__(K2Cfg<BQ, BK, STAGES>::kThreads)
 attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int L, int H,
@@ -84,19 +105,20 @@ attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   const int lane = tid % 32;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
-  const int row0 = blockIdx.z * L;  // first row of this batch in the [B*L] sequence axis
-  const int ntiles = L / BK;
+  const int b = blockIdx.z;
+  const int row0 = b * L;  // first row of this batch in the [B*L] sequence axis
+  const int ntiles = TAIL ? (L + BK - 1) / BK : L / BK;
 
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) lb::mbar_init(&bars[i], 1);
     lb::fence_mbar_init();
     lb::mbar_expect_tx(&bars[0], C::kQBytes);
-    lb::tma_load_3d(sQ, &tq, &bars[0], 0, h, row0 + q0);
+    load_tile<TAIL>(sQ, &tq, &bars[0], h, b, L, q0);
     for (int s = 0; s < STAGES && s < ntiles; ++s) {
       uint8_t* st = smem + C::kQBytes + s * C::kStageBytes;
       lb::mbar_expect_tx(&bars[1 + s], C::kStageBytes);
-      lb::tma_load_3d(st, &tk, &bars[1 + s], 0, h, row0 + s * BK);
-      lb::tma_load_3d(st + C::kKVBytes, &tv, &bars[1 + s], 0, h, row0 + s * BK);
+      load_tile<TAIL>(st, &tk, &bars[1 + s], h, b, L, s * BK);
+      load_tile<TAIL>(st + C::kKVBytes, &tv, &bars[1 + s], h, b, L, s * BK);
     }
   }
   __syncthreads();
@@ -128,6 +150,18 @@ attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     }
     lb::wgmma_commit();
     lb::wgmma_wait<0>();
+
+    if constexpr (TAIL) {
+      // keys >= L in the last tile (zeros from the box bounds) take no weight
+      const int valid = L - j * BK;
+      if (valid < BK) {
+#pragma unroll
+        for (int nb = 0; nb < BK / 64; ++nb)
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            if (nb * 64 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2) >= valid) sc[nb][i] = -INFINITY;
+      }
+    }
 
     // online softmax on the accumulators. Register i of a 64-column block
     // holds row (lane/4 + 8*((i/2)%2)) of this warp's 16, column
@@ -178,8 +212,8 @@ attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     if (tid == 0 && j + STAGES < ntiles) {
       uint8_t* st = smem + C::kQBytes + s * C::kStageBytes;
       lb::mbar_expect_tx(&bars[1 + s], C::kStageBytes);
-      lb::tma_load_3d(st, &tk, &bars[1 + s], 0, h, row0 + (j + STAGES) * BK);
-      lb::tma_load_3d(st + C::kKVBytes, &tv, &bars[1 + s], 0, h, row0 + (j + STAGES) * BK);
+      load_tile<TAIL>(st, &tk, &bars[1 + s], h, b, L, (j + STAGES) * BK);
+      load_tile<TAIL>(st + C::kKVBytes, &tv, &bars[1 + s], h, b, L, (j + STAGES) * BK);
     }
   }
 
@@ -195,6 +229,7 @@ attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   for (int c = 0; c < 8; ++c)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
+      if (TAIL && r + 8 * e >= L) continue;
       const int64_t idx = ((int64_t)(row0 + r + 8 * e) * H + h) * kD + 8 * c + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(out + idx) =
           __floats2bfloat162_rn(o[4 * c + 2 * e] * inv[e], o[4 * c + 2 * e + 1] * inv[e]);
@@ -203,22 +238,44 @@ attention_d64_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 
 // ------------------------------------------------------------------- host
 
-template <int BQ, int BK, int STAGES>
+// A row-major [B, L, H, 64] bf16 tensor as a 4-d map (64 columns, H, L, B)
+// read in boxes of box_rows rows of one head of one batch, in the 128-byte
+// swizzle: the same box in shared memory as make_map_sw128's, with the
+// bounds of each batch's L rows (rows past them read as zeros).
+bool make_map_sw128_4d(CUtensorMap* map, const void* ptr, int B, int L, int H, int box_rows) {
+  lb::EncodeTiledFn fn = lb::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)H * 128, (cuuint64_t)L * H * 128};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BQ, int BK, int STAGES, bool TAIL>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int L, int H, float scale,
            void* stream) {
   using C = K2Cfg<BQ, BK, STAGES>;
   if (B <= 0 || L <= 0 || H <= 0) return 0;
-  if (L % BQ != 0 || L % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  const int64_t rows = (int64_t)B * L;
-  if (!lb::make_map_sw128(&tq, q, rows, H, BQ) || !lb::make_map_sw128(&tk, k, rows, H, BK) ||
-      !lb::make_map_sw128(&tv, v, rows, H, BK))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = attention_d64_bf16_kernel<BQ, BK, STAGES>;
+  if constexpr (TAIL) {
+    if (!make_map_sw128_4d(&tq, q, B, L, H, BQ) || !make_map_sw128_4d(&tk, k, B, L, H, BK) ||
+        !make_map_sw128_4d(&tv, v, B, L, H, BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (L % BQ != 0 || L % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t rows = (int64_t)B * L;
+    if (!lb::make_map_sw128(&tq, q, rows, H, BQ) || !lb::make_map_sw128(&tk, k, rows, H, BK) ||
+        !lb::make_map_sw128(&tv, v, rows, H, BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = attention_d64_bf16_kernel<BQ, BK, STAGES, TAIL>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(L / BQ, H, B);
+  dim3 grid((L + BQ - 1) / BQ, H, B);
   kernel<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), L, H, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -226,8 +283,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int L,
 
 }  // namespace
 
-// K2: UNet self-attention, head dim 64, bf16 in/out, f32 accumulation.
+// K2: self-attention, head dim 64, bf16 in/out, f32 accumulation, any L
+// (a multiple of 128 on the whole-tile kernel, any other on the tail one).
 extern "C" int lb_attention_fwd_d64_bf16(const void* q, const void* k, const void* v, void* out, int B, int L,
                                          int H, float scale, void* stream) {
-  return launch<64, 128, 2>(q, k, v, out, B, L, H, scale, stream);
+  if (L % 128 == 0) return launch<64, 128, 2, false>(q, k, v, out, B, L, H, scale, stream);
+  return launch<64, 128, 2, true>(q, k, v, out, B, L, H, scale, stream);
 }

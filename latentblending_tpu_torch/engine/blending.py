@@ -602,7 +602,7 @@ class BlendingEngine:
 
     def set_guidance_scale(self, guidance_scale: Optional[float] = None):
         if guidance_scale is None:
-            guidance_scale = 0.0 if self.dh.is_sdxl_turbo else 4.0
+            guidance_scale = self.dh.default_guidance_scale
         self.guidance_scale_base = float(guidance_scale)
         self.guidance_scale = float(guidance_scale)
         self.dh.guidance_scale = float(guidance_scale)
@@ -687,7 +687,7 @@ class BlendingEngine:
 
     def set_num_inference_steps(self, num_inference_steps: Optional[int] = None):
         if num_inference_steps is None:
-            num_inference_steps = 4 if self.dh.is_sdxl_turbo else 30
+            num_inference_steps = self.dh.default_num_inference_steps
         changed = getattr(self, "num_inference_steps", None) != int(num_inference_steps)
         self.num_inference_steps = int(num_inference_steps)
         self.dh.set_num_inference_steps(self.num_inference_steps)

@@ -60,6 +60,21 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMS normalisation over the last dim with a learned scale (diffusers'
+    RMSNorm, T5's layer norm): statistics, scale and product in float32,
+    the result in the input's dtype; the scale is kept float32."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps) * self.weight.float()).to(x.dtype)
+
+
 class Conv3x3(nn.Conv2d):
     """A 3x3 convolution with padding 1 (an nn.Conv2d: the same parameters
     and state-dict keys). A contiguous CUDA float32 input that C1 takes
@@ -262,7 +277,7 @@ class VAEAttention(nn.Module):
         return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)  # x first: NCHW strides, as in Transformer2D
 
 
-_NORMS = (nn.GroupNorm, nn.LayerNorm)
+_NORMS = (nn.GroupNorm, nn.LayerNorm, RMSNorm)
 
 
 @torch.no_grad()
@@ -295,8 +310,9 @@ def init_like_jax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def cast_keep_norms_f32(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """module.to(dtype) with GroupNorm/LayerNorm parameters kept float32 (the
-    JAX package creates them in float32 whatever the param dtype)."""
+    """module.to(dtype) with GroupNorm/LayerNorm/RMSNorm parameters kept
+    float32 (the JAX package creates them in float32 whatever the param
+    dtype)."""
     module.to(dtype)
     for mod in module.modules():
         if isinstance(mod, _NORMS):

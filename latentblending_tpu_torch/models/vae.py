@@ -112,26 +112,38 @@ class VAEEncoder(nn.Module):
 
 class VAE(nn.Module):
     """AutoencoderKL; decode() is the hot path (keyframe rendering),
-    encode() serves image keyframes."""
+    encode() serves image keyframes. quant_conv / post_quant_conv are built
+    unless the checkpoint has none (SD3's VAE: use_quant_conv and
+    use_post_quant_conv false)."""
 
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, use_quant_conv: bool = True, use_post_quant_conv: bool = True):
         super().__init__()
         self.cfg = cfg
         self.encoder = VAEEncoder(cfg)
         self.decoder = VAEDecoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        if use_quant_conv:
+            self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
+        if use_post_quant_conv:
+            self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.decoder.conv_in.weight.dtype
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        """latents [B,4,h,w] (already divided by scaling_factor) → image
-        [B,3,H,W] in about [-1,1]."""
-        z = self.post_quant_conv(latents.to(self.post_quant_conv.weight.dtype))
+        """latents [B,c,h,w] (already divided by scaling_factor and shifted)
+        → image [B,3,H,W] in about [-1,1]."""
+        z = latents.to(self.weight_dtype)
+        if hasattr(self, "post_quant_conv"):
+            z = self.post_quant_conv(z)
         return self.decoder(z)
 
     def encode(self, image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """image [B,3,H,W] in [-1,1] → (mean, logvar), each [B,4,H/8,W/8],
+        """image [B,3,H,W] in [-1,1] → (mean, logvar), each [B,c,H/8,W/8],
         logvar clipped to [-30, 20]."""
-        moments = self.quant_conv(self.encoder(image.to(self.quant_conv.weight.dtype)))
+        moments = self.encoder(image.to(self.weight_dtype))
+        if hasattr(self, "quant_conv"):
+            moments = self.quant_conv(moments)
         mean, logvar = moments.chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 

@@ -18,7 +18,14 @@ never write the [B,H,L,L] logits, so memory stays O(L·tile):
 
 - K2 bf16, csrc/attention_d64_bf16.cu: warpgroup MMA (wgmma) on bf16, Q
   and K/V tiles loaded by TMA, softmax and P (bf16) kept in registers;
-  query tiles of 64 rows, key tiles of 128 rows.
+  query tiles of 64 rows, key tiles of 128 rows. It takes any sequence
+  length: a length that is not a multiple of 128 (SD3's joint sequence,
+  4096 image + 333 text tokens at 1024²) runs a second instantiation
+  that reads each batch through its own TMA box bounds (rows past L read
+  as zeros, never another batch's), masks the last key tile's columns
+  past L to -inf and stores no row past L; it is counted under `K2` and
+  under `K2_tail`. Lengths that are multiples of 128 run the kernel as
+  before.
 - K2 f32, csrc/attention_d64_f32.cu: TF32 wgmma in three passes (3xTF32,
   hi/lo operand split: ~f32 accuracy), one CTA per 128 query rows of one
   head (two consumer warpgroups); a producer warpgroup loads Q and 64-key
@@ -47,11 +54,12 @@ from latentblending_tpu_torch import profiling
 
 # (head dim, dtype) -> (C entry point, its launch counter in the profiling
 # registry (a CPU call launches nothing), the sequence multiple
-# its tiles need: K2 bf16 64-row query and 128-row key tiles, K2 f32
-# 128-row query and 64-row key tiles, K3 f32 64-row query and 32-row key
-# tiles, K3 bf16 64-row query and key tiles)
+# its tiles need: K2 bf16 64-row query and 128-row key tiles (1: its tail
+# instantiation takes the rest), K2 f32 128-row query and 64-row key
+# tiles, K3 f32 64-row query and 32-row key tiles, K3 bf16 64-row query
+# and key tiles)
 _KERNELS = {
-    (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "K2", 128),
+    (64, torch.bfloat16): ("lb_attention_fwd_d64_bf16", "K2", 1),
     (64, torch.float32): ("lb_attention_fwd_d64_f32", "K2_f32", 128),
     (512, torch.float32): ("lb_attention_fwd_d512_f32", "K3", 64),
     (512, torch.bfloat16): ("lb_attention_fwd_d512_bf16", "K3_bf16", 64),
@@ -72,7 +80,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unmasked self-attention, q/k/v [B, L, H, d] → [B, L, H, d]."""
-    if not q.is_cuda:
+    if not _on_card(q):
         return attention_reference(q, k, v)
     B, L, H, D = q.shape
     key = (D, q.dtype)
@@ -80,7 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise TypeError(f"flash_attention: no kernel for head dim {D} in {q.dtype} (have {sorted(_KERNELS, key=str)})")
     if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share shape and dtype (self-attention)")
-    if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
+    if not (_on_card(k) and _on_card(v)) or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q, k and v must be on the same CUDA device")
     name, counter, multiple = _KERNELS[key]
     if L % multiple:
@@ -91,14 +99,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on a 16-byte boundary (TMA / cp.async loads)")
+    out = torch.empty_like(q)
+    _launch(name, q, k, v, out)
+    profiling.count(counter)
+    if counter == "K2" and L % 128:
+        profiling.count("K2_tail")
+    return out
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether t goes to a kernel (a CUDA tensor); the one place a test may
+    stand the card in, with `_launch`."""
+    return t.is_cuda
+
+
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor) -> None:
+    """Run the C entry `name` on q, k, v into out, on q's device and its
+    current stream; raises on a launch error."""
     from latentblending_tpu_torch.ops import _build
 
-    out = torch.empty_like(q)
+    B, L, H, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_build.library(), name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, float(D ** -0.5), stream
         )
     _build.check(rc, name)
-    profiling.count(counter)
-    return out

@@ -21,6 +21,14 @@ latent trajectories match:
 The σ table is computed on host in float64 and shipped to the device as a
 small float32 vector; the per-step math runs in the denoise loop
 (runtime/denoise.py).
+
+SD3's FlowMatchEulerDiscreteScheduler (`FlowMatchSchedulerConfig`,
+scheduler type "flow_euler") shares the step: the model predicts the
+velocity v and x_{t-1} = x_t + v · (σ_{t-1} − σ_t), `euler_step`'s own
+update. Its table (make_flow_schedule) is diffusers' set_timesteps:
+σ = linspace(1, σ_min, N) with σ_min the shifted 1/T, then
+σ ← s·σ / (1 + (s − 1)·σ), t = T·σ, a terminal 0; no input scaling and an
+initial noise σ of 1.
 """
 from __future__ import annotations
 
@@ -54,6 +62,17 @@ SDXL_TURBO_SCHEDULER = SchedulerConfig(
 # still selectable for ablation
 SDXL_TURBO_EULER_SCHEDULER = SchedulerConfig(timestep_spacing="trailing", steps_offset=1)
 
+@dataclasses.dataclass(frozen=True)
+class FlowMatchSchedulerConfig:
+    """diffusers' FlowMatchEulerDiscreteScheduler with a static shift."""
+
+    num_train_timesteps: int = 1000
+    shift: float = 3.0
+    scheduler_type: str = "flow_euler"
+
+
+SD3_SCHEDULER = FlowMatchSchedulerConfig()
+
 _CLASS_NAME_TO_TYPE = {
     "EulerDiscreteScheduler": "euler",
     "EulerAncestralDiscreteScheduler": "euler_ancestral",
@@ -67,6 +86,8 @@ def scheduler_config_from_hf(cfg_json: dict, default: "SchedulerConfig") -> "Sch
     """Build a SchedulerConfig from a checkpoint's scheduler_config.json —
     the reference's behavior is defined by this file, not by code."""
     cls = cfg_json.get("_class_name", "")
+    if cls == "FlowMatchEulerDiscreteScheduler":
+        return _flow_config_from_hf(cfg_json)
     stype = _CLASS_NAME_TO_TYPE.get(cls)
     pred = str(cfg_json.get("prediction_type", "epsilon"))
     if pred != "epsilon":
@@ -105,6 +126,19 @@ def scheduler_config_from_hf(cfg_json: dict, default: "SchedulerConfig") -> "Sch
     )
 
 
+def _flow_config_from_hf(cfg_json: dict) -> FlowMatchSchedulerConfig:
+    """A FlowMatchEulerDiscreteScheduler config; the knobs that would change
+    the σ table away from a static shift are refused."""
+    for key in ("use_dynamic_shifting", "use_karras_sigmas", "use_exponential_sigmas", "use_beta_sigmas",
+                "invert_sigmas", "stochastic_sampling"):
+        if cfg_json.get(key):
+            raise NotImplementedError(f"FlowMatchEulerDiscreteScheduler with {key}=true is not supported")
+    if cfg_json.get("shift_terminal"):
+        raise NotImplementedError("FlowMatchEulerDiscreteScheduler with shift_terminal is not supported")
+    return FlowMatchSchedulerConfig(num_train_timesteps=int(cfg_json.get("num_train_timesteps", 1000)),
+                                    shift=float(cfg_json.get("shift", 1.0)))
+
+
 def _training_sigmas(cfg: SchedulerConfig) -> np.ndarray:
     betas = (
         np.linspace(cfg.beta_start**0.5, cfg.beta_end**0.5, cfg.num_train_timesteps, dtype=np.float64)
@@ -129,13 +163,37 @@ class SchedulerState:
 
     @property
     def init_noise_sigma(self) -> float:
+        if isinstance(self.config, FlowMatchSchedulerConfig):
+            return 1.0
         if self.config.timestep_spacing in ("linspace", "trailing"):
             return float(self.sigmas.max())
         return float((self.sigmas.max() ** 2 + 1.0) ** 0.5)
 
 
-def make_schedule(cfg: SchedulerConfig, num_steps: int) -> SchedulerState:
-    """Equivalent of EulerDiscreteScheduler.set_timesteps for SDXL configs."""
+def make_flow_schedule(cfg: FlowMatchSchedulerConfig, num_steps: int) -> SchedulerState:
+    """FlowMatchEulerDiscreteScheduler.set_timesteps with a static shift s:
+    σ = linspace(σ_max, σ_min, N) between the ends of the shifted training
+    grid (σ_max = 1, σ_min = s/T / (1 + (s-1)/T)), then shifted once more,
+    σ ← s·σ / (1 + (s-1)·σ), as diffusers does; timesteps T·σ; a terminal 0."""
+    T, s = cfg.num_train_timesteps, cfg.shift
+
+    def shifted(x):
+        return s * x / (1.0 + (s - 1.0) * x)
+
+    sigmas = shifted(np.linspace(shifted(1.0), shifted(1.0 / T), num_steps, dtype=np.float64)).astype(np.float32)
+    return SchedulerState(
+        config=cfg,
+        num_steps=num_steps,
+        timesteps=sigmas * np.float32(T),
+        sigmas=np.concatenate([sigmas, np.zeros(1, np.float32)]),
+    )
+
+
+def make_schedule(cfg, num_steps: int) -> SchedulerState:
+    """Equivalent of the scheduler's set_timesteps: EulerDiscreteScheduler
+    for SDXL configs, FlowMatchEulerDiscreteScheduler for SD3's."""
+    if isinstance(cfg, FlowMatchSchedulerConfig):
+        return make_flow_schedule(cfg, num_steps)
     T = cfg.num_train_timesteps
     if cfg.timestep_spacing == "linspace":
         timesteps = np.linspace(0, T - 1, num_steps, dtype=np.float64)[::-1].copy()

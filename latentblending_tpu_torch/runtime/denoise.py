@@ -48,7 +48,8 @@ class DenoisePlan:
     batch: int
     use_cfg: bool
     guidance_rescale: float = 0.0
-    # "euler" | "euler_ancestral" | "dpmpp_2m"
+    # "euler" | "euler_ancestral" | "dpmpp_2m" | "flow_euler" (SD3's flow
+    # matching: the model takes the state unscaled and predicts the velocity)
     sched: str = "euler"
     # ((start_step, batch), ...) of the segmented tree scan, else ()
     segs: tuple = ()
@@ -60,11 +61,12 @@ class DenoisePlan:
 
 @dataclasses.dataclass
 class Conditioning:
-    """Batched SDXL conditioning for one denoise call (all [B, ...])."""
+    """Batched conditioning for one denoise call (all [B, ...]); SD3 has no
+    time ids (None)."""
 
-    prompt_embeds: torch.Tensor  # [B, 77, 2048]
-    pooled_embeds: torch.Tensor  # [B, 1280]
-    time_ids: torch.Tensor  # [B, 6]
+    prompt_embeds: torch.Tensor  # [B, 77, 2048] (SD3: [B, 333, 4096])
+    pooled_embeds: torch.Tensor  # [B, 1280] (SD3: [B, 2048])
+    time_ids: Optional[torch.Tensor]  # [B, 6] SDXL's micro-conditioning, or None
     neg_prompt_embeds: Optional[torch.Tensor] = None
     neg_pooled_embeds: Optional[torch.Tensor] = None
     neg_time_ids: Optional[torch.Tensor] = None
@@ -84,6 +86,8 @@ def _fold_cfg(plan: DenoisePlan, cond: Conditioning):
     if plan.use_cfg:
         pe = torch.cat([cond.neg_prompt_embeds, cond.prompt_embeds], dim=0)
         pool = torch.cat([cond.neg_pooled_embeds, cond.pooled_embeds], dim=0)
+        if cond.time_ids is None:
+            return pe, pool, None
         neg_t = cond.neg_time_ids if cond.neg_time_ids is not None else cond.time_ids
         return pe, pool, torch.cat([neg_t, cond.time_ids], dim=0)
     return cond.prompt_embeds, cond.pooled_embeds, cond.time_ids
@@ -91,9 +95,11 @@ def _fold_cfg(plan: DenoisePlan, cond: Conditioning):
 
 def _eps_and_step(plan, unet_apply, pe, pool, tids, guidance_scale,
                   latents, old_denoised, sigma, sigma_prev, sigma_next, t, noise, use2):
-    """One UNet eval (CFG-folded; the tracer's `unet` span) and one solver
-    update."""
-    lmi = scale_model_input(latents, sigma)
+    """One denoiser eval (CFG-folded; the tracer's `unet` span, whatever the
+    denoiser's family: SDXL's UNet or SD3's MMDiT) and one solver update.
+    Flow matching feeds the state unscaled and steps on the velocity with
+    Euler's update."""
+    lmi = latents if plan.sched == "flow_euler" else scale_model_input(latents, sigma)
     if plan.use_cfg:
         with profiling.span("unet"):
             eps2 = unet_apply(torch.cat([lmi, lmi], dim=0), t, pe, pool, tids)

@@ -1,5 +1,6 @@
 """SDXLHolder — the diffusion runtime (UNet, VAE, two CLIP towers, the
-scheduler tables and tokenizers), in PyTorch.
+scheduler tables and tokenizers), in PyTorch; SD3Holder, the same runtime
+over SD3's MMDiT, three text towers and flow-matching schedule.
 
 Counterpart of latentblending_tpu/runtime/holder.py. The holder owns torch
 modules on `device`, the card unless the caller passes device="cpu" (it
@@ -28,6 +29,9 @@ from latentblending_tpu_torch import profiling
 from latentblending_tpu_torch.models import configs as C
 from latentblending_tpu_torch.models.clip import CLIPTextEncoder
 from latentblending_tpu_torch.models.layers import cast_keep_norms_f32, init_like_jax_
+from latentblending_tpu_torch.models.mmdit import MMDiT
+from latentblending_tpu_torch.models.sd3_configs import SD3_SPECS, SD3Spec
+from latentblending_tpu_torch.models.t5 import T5Encoder, T5HashTokenizer
 from latentblending_tpu_torch.models.tokenizer import CLIPTokenizer, HashTokenizer
 from latentblending_tpu_torch.models.unet import UNet2DCondition
 from latentblending_tpu_torch.models.vae import VAE
@@ -141,7 +145,7 @@ class SDXLHolder:
         self.spec = spec if isinstance(spec, ModelSpec) else SPECS[spec]
         self.dtype = dtype
         self.vae_dtype = torch.float32 if vae_dtype is None else vae_dtype
-        vae_weights = modules["vae"].post_quant_conv.weight.dtype
+        vae_weights = modules["vae"].weight_dtype
         if vae_weights != self.vae_dtype:
             raise ValueError(f"SDXLHolder: the VAE's weights are {vae_weights}, vae_dtype is {self.vae_dtype}")
         self.device = _holder_device(device)
@@ -161,7 +165,13 @@ class SDXLHolder:
             self.spec.clip2.vocab_size, bos_token_id=0, eos_token_id=self.spec.clip2.eos_token_id, pad_token_id=0
         )
         self.negative_prompt = ""
-        self.guidance_scale = 0.0 if self.is_sdxl_turbo else 4.0
+        self._init_state()
+
+    def _init_state(self) -> None:
+        """The runtime state every holder starts from: guidance, the noise
+        stream, the denoise signatures seen, carried spans, the schedule at
+        the default step count and the spec's default size."""
+        self.guidance_scale = self.default_guidance_scale
         self.guidance_rescale = 0.0
         # ancestral per-step noise: deterministic in (noise_seed_base, call
         # index); the engine restarts the stream at each transition
@@ -173,7 +183,7 @@ class SDXLHolder:
         self.last_run_was_warm = False
         # embed spans taken while no transition was open, for the next one
         self.carried_spans: list = []
-        self.num_inference_steps = 4 if self.is_sdxl_turbo else 30
+        self.num_inference_steps = self.default_num_inference_steps
         self.schedule: SchedulerState = make_schedule(self.spec.scheduler, self.num_inference_steps)
         self.set_dimensions(self.spec.default_size)
 
@@ -253,6 +263,19 @@ class SDXLHolder:
                    device=device, **kw)
 
     # ----------------------------------------------------------------- state
+
+    @property
+    def default_guidance_scale(self) -> float:
+        """The family's CFG scale: none for turbo, 4.0 for SDXL-base."""
+        return 0.0 if self.is_sdxl_turbo else 4.0
+
+    @property
+    def default_num_inference_steps(self) -> int:
+        return 4 if self.is_sdxl_turbo else 30
+
+    @property
+    def latent_channels(self) -> int:
+        return self.spec.vae.latent_channels
 
     def init_types(self) -> dict:
         """The reference's runtime dtype probe and turbo detection, here
@@ -355,9 +378,10 @@ class SDXLHolder:
     # ----------------------------------------------------------- noise path
 
     def get_noise(self, seed: int = 420) -> torch.Tensor:
-        """[1, h_lat, w_lat, 4] seeded gaussian × init_noise_sigma."""
+        """[1, h_lat, w_lat, c] seeded gaussian × init_noise_sigma (c the
+        VAE's latent channels)."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        lat = torch.randn((1, self.height_latent, self.width_latent, 4), generator=gen,
+        lat = torch.randn((1, self.height_latent, self.width_latent, self.latent_channels), generator=gen,
                           device=self.device, dtype=torch.float32)
         return (lat * self.schedule.init_noise_sigma).to(self.dtype)
 
@@ -385,15 +409,21 @@ class SDXLHolder:
 
     # --------------------------------------------------------- decode path
 
+    # the VAE's latent shift (SD3's shift_factor); SDXL has none
+    vae_shift_factor: Optional[float] = None
+
     @torch.no_grad()
     def decode_to_pm1_batched(self, latents: torch.Tensor) -> torch.Tensor:
-        """[B,h,w,4] → [B,H,W,3] images in [-1,1], on the device, decoded in
-        chunks of `decode_chunk` so full-resolution activations stay bounded."""
+        """[B,h,w,c] → [B,H,W,3] images in [-1,1], on the device, decoded in
+        chunks of `decode_chunk` so full-resolution activations stay bounded:
+        z / scaling_factor (+ shift_factor), then the VAE's decode."""
         outs = []
         c = max(1, self.decode_chunk)
         with profiling.span("vae.decode", device=latents.device, rows=latents.shape[0]):
             for i in range(0, latents.shape[0], c):
                 z = latents[i : i + c].float().permute(0, 3, 1, 2) / self.spec.vae.scaling_factor
+                if self.vae_shift_factor is not None:
+                    z = z + self.vae_shift_factor
                 img = self.vae.decode(z.contiguous()).permute(0, 2, 3, 1)
                 outs.append(torch.clamp(img, -1.0, 1.0))
             return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
@@ -747,3 +777,138 @@ class SDXLHolder:
         t0 = time.time()
         self.latent2image(out[-1])
         return dt_unet_step, time.time() - t0
+
+
+# ------------------------------------------------------------------ SD3
+
+
+def build_sd3_modules(spec: SD3Spec, dtype: torch.dtype, device, vae_dtype: Optional[torch.dtype] = None,
+                      t5_dtype: Optional[torch.dtype] = None) -> dict[str, nn.Module]:
+    """The five modules of an SD3 spec, allocated uninitialised on `device`
+    (built on the meta device): the MMDiT in `dtype` and T5 in `t5_dtype`
+    (None: `dtype`), each with float32 norms; the VAE in `vae_dtype` (None:
+    float32) with no quant convs; both CLIP towers in float32."""
+    with torch.device("meta"):
+        mods = {
+            "mmdit": cast_keep_norms_f32(MMDiT(spec.mmdit), dtype),
+            "t5": cast_keep_norms_f32(T5Encoder(spec.t5), t5_dtype or dtype),
+            "vae": cast_keep_norms_f32(VAE(spec.vae, use_quant_conv=False,
+                                           use_post_quant_conv=spec.vae_post_quant_conv), vae_dtype or torch.float32),
+            "clip1": CLIPTextEncoder(spec.clip1),
+            "clip2": CLIPTextEncoder(spec.clip2),
+        }
+    return {k: m.to_empty(device=device).eval().requires_grad_(False) for k, m in mods.items()}
+
+
+class SD3Holder(SDXLHolder):
+    """The runtime of an SD3 pipeline (stabilityai/stable-diffusion-3.5-large):
+    SDXLHolder's tree, segmented-tree and decode paths over the MMDiT as the
+    denoiser (held as `unet` too, the denoise loops' name for it),
+    flow-matching Euler on 16-channel latents, and SD3's conditioning: the
+    penultimate states of CLIP-L and OpenCLIP bigG side by side, zero-padded
+    to T5's width and followed along the sequence by T5's 256 tokens, the
+    two projected pooled features concatenated; no time ids. The decode
+    shifts the latents by the VAE's shift_factor.
+
+    What SDXL's holder does and this one cannot, it refuses: a mesh (the
+    tensor-parallel rules are the UNet's), image keyframes (no encode path
+    was checked for the 16-channel VAE) and samplers other than flow-matching
+    Euler."""
+
+    def __init__(self, spec: SD3Spec | str, modules: dict[str, nn.Module], dtype: torch.dtype = torch.bfloat16,
+                 vae_dtype: Optional[torch.dtype] = None, device="cuda", mesh=None):
+        """modules: {'mmdit', 't5', 'vae', 'clip1', 'clip2'} on `device`
+        (build_sd3_modules), the VAE's weights in `vae_dtype` (None:
+        float32)."""
+        if mesh is not None:
+            raise NotImplementedError("SD3Holder runs on one device: the mesh's tensor-parallel rules are the UNet's")
+        self.spec = spec if isinstance(spec, SD3Spec) else SD3_SPECS[spec]
+        self.dtype = dtype
+        self.vae_dtype = torch.float32 if vae_dtype is None else vae_dtype
+        if modules["vae"].weight_dtype != self.vae_dtype:
+            raise ValueError(f"SD3Holder: the VAE's weights are {modules['vae'].weight_dtype}, "
+                             f"vae_dtype is {self.vae_dtype}")
+        self.device = _holder_device(device)
+        self.is_sdxl_turbo = False
+        self.mmdit = self.unet = modules["mmdit"]
+        self.t5 = modules["t5"]
+        self.vae = modules["vae"]
+        self.clip1 = modules["clip1"]
+        self.clip2 = modules["clip2"]
+        self.mesh = None
+        self._params_placed = False
+        self.vae_shift_factor = self.spec.vae_shift_factor
+        sp = self.spec
+        self.tokenizer1 = HashTokenizer(sp.clip1.vocab_size, bos_token_id=0, eos_token_id=sp.clip1.eos_token_id,
+                                        pad_token_id=sp.clip1.eos_token_id)
+        self.tokenizer2 = HashTokenizer(sp.clip2.vocab_size, bos_token_id=0, eos_token_id=sp.clip2.eos_token_id,
+                                        pad_token_id=0)
+        self.tokenizer3 = T5HashTokenizer(sp.t5.vocab_size, sp.t5.eos_token_id, sp.t5.pad_token_id,
+                                          sp.max_sequence_length)
+        self.negative_prompt = ""
+        self._init_state()
+
+    @classmethod
+    def from_random(cls, spec: SD3Spec | str = "tiny-sd3", seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                    vae_dtype: Optional[torch.dtype] = None, device="cuda", **kw) -> "SD3Holder":
+        """Random-weight holder (SDXLHolder.from_random's initialisation)."""
+        spec = spec if isinstance(spec, SD3Spec) else SD3_SPECS[spec]
+        device = _holder_device(device)
+        mods = build_sd3_modules(spec, dtype, device, vae_dtype)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        for m in mods.values():
+            init_like_jax_(m, gen)
+        return cls(spec, mods, dtype=dtype, vae_dtype=vae_dtype, device=device, **kw)
+
+    @classmethod
+    def from_state_dicts(cls, *a, **kw):
+        raise NotImplementedError("SD3Holder: build the modules with build_sd3_modules and load them")
+
+    @classmethod
+    def from_pretrained(cls, *a, **kw):
+        raise NotImplementedError("SD3Holder: no snapshot loader (the MMDiT and T5 have no checkpoint reader)")
+
+    @property
+    def default_guidance_scale(self) -> float:
+        return self.spec.default_guidance
+
+    @property
+    def default_num_inference_steps(self) -> int:
+        return self.spec.default_steps
+
+    def set_scheduler_type(self, scheduler_type: str):
+        if scheduler_type != "flow_euler":
+            raise ValueError(f"SD3Holder samples by flow-matching Euler only, not {scheduler_type!r}")
+
+    @torch.no_grad()
+    def get_text_embedding(self, prompt: str):
+        """(prompt_embeds [1, 77 + T5 tokens, T5 width], negative, pooled
+        [1, 2048], negative pooled) in the holder's dtype: the `embed` span,
+        T5 inside it as the `t5` span (both carried to the next transition
+        when none is open)."""
+        with profiling.span("embed", device=self.device, carry=self.carried_spans):
+            texts = [prompt, self.negative_prompt]
+
+            def ids(tok):
+                return torch.as_tensor(tok(texts), dtype=torch.long, device=self.device)
+
+            pen1, _, pool1 = self.clip1(ids(self.tokenizer1))
+            pen2, _, pool2 = self.clip2(ids(self.tokenizer2))
+            with profiling.span("t5", device=self.device, carry=self.carried_spans):
+                t5 = self.t5(ids(self.tokenizer3))
+            clip = torch.cat([pen1, pen2], dim=-1)
+            clip = torch.nn.functional.pad(clip, (0, t5.shape[-1] - clip.shape[-1]))
+            embeds = torch.cat([clip.to(self.dtype), t5.to(self.dtype)], dim=1)
+            pooled = torch.cat([pool1, pool2], dim=-1)
+            return (embeds[0:1], embeds[1:2], pooled[0:1].to(self.dtype), pooled[1:2].to(self.dtype))
+
+    def default_time_ids(self, batch: int):
+        """SD3 has no micro-conditioning."""
+        return None
+
+    def _unet_apply(self, lat, t, pe, pool, tids):
+        v = self.mmdit(lat.permute(0, 3, 1, 2), t, pe, pool)
+        return v.permute(0, 2, 3, 1).contiguous()
+
+    def image2latent(self, image) -> torch.Tensor:
+        raise NotImplementedError("SD3Holder: image keyframes are not supported (no 16-channel encode path)")

@@ -8,8 +8,9 @@ does (benchmark/system.py: its configuration, weights made from the seed,
 its traffic mix), warms up one transition, then prints a JSON line a
 transition with what its report's span tree gives: host_syncs by reason,
 the denoise steps' host (dispatch) and device ms (total over count), the
-UNet spans' host ms, the similarity passes', decodes' and embeds' device
-seconds, the root's children's host seconds, the garbage collections and
+denoiser's `unet` spans' host ms (the UNet's or SD3's MMDiT's), the
+similarity passes', decodes', embeds' and T5's (inside SD3's embeds)
+device seconds, K2's launches at a length no multiple of 128 (K2_tail), the root's children's host seconds, the garbage collections and
 the phases. Last, two transitions under a profile of host and device (so
 that the gap between them, the client's and the next embed's, is inside):
 the device's busy and window seconds, the longest idle gaps, each named by
@@ -56,7 +57,9 @@ def _numbers(rep, wall_s: float) -> dict:
         "similarity_passes": len(by_name["similarity.pass"]),
         "vae_decode_device_s": total("vae.decode", "device_s"),
         "embed_device_s": total("embed", "device_s"), "embed_host_s": total("embed", "host_s"),
-        "unresolved": sum(1 for s in spans if s.name in ("step", "vae.decode", "similarity.pass", "embed")
+        "t5_device_s": total("t5", "device_s"), "t5_host_s": total("t5", "host_s"),
+        "K2_tail": rep.counters.get("K2_tail", 0),
+        "unresolved": sum(1 for s in spans if s.name in ("step", "vae.decode", "similarity.pass", "embed", "t5")
                           and s.device_s is None),
         "root_children_host_s": dict(children),
         "gc": [len(by_name["gc"]), total("gc", "host_s")],
