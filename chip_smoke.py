@@ -18,7 +18,7 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    over a 4-CTA cluster) and K2 in f32 (attention_d64_f32: 3xTF32 on TF32
    wgmma) and C1 (conv3x3_f32: 3xTF32 on TF32 wgmma) have HGMMA, no HMMA
    and no spill loads or stores, and unless J1's fdct_quant_kernel has no
-   local memory;
+   local memory, and unless M1's adaln_kernel has none;
 3. holds J1 exactly against its plain version on frames made here
    (j1_exact_cases: noise at the movie path's batches [1|4,768,512] I420
    and [12|34,512,512,3] RGB and at odd sizes, 0, 255 and checkerboards of
@@ -48,7 +48,17 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    bound), at least C1_MIN_SPEEDUP times cuDNN's FFMA kernel, the calls of
    a decode summed, then at an f32 UNet's shapes, narrow and ragged images
    and SD3.5-Large's decoder conv_in (16 -> 512 channels at 128²);
-   C1's wrapper's refusals (bf16, stride 2, Cin 4, non-contiguous).
+   C1's wrapper's refusals (bf16, stride 2, Cin 4, non-contiguous);
+   M1 (ln_modulate, gated_residual, and gated_residual with the norm) at
+   SD3.5-Large's [4|12,4096|333,2432] bf16 rows, and at the widths that
+   take the kernel's other instantiations (D 1536: one load a thread, 8192:
+   four, 72: one warp with dead lanes), against the float64 expression
+   (M1_ULP_SHARE of the outputs within a bf16 rounding step, M1_REL_BOUND)
+   and x' against the plain version bit for bit, with the unfused PyTorch
+   chain's device time beside it (both over copies of the inputs that
+   keep a replay's working set at 4x L2 or more), then what an MMDiT
+   call's 227 launches take; M1's wrapper's refusals (float32, a
+   non-contiguous x, D = 12).
    The f32 attention kernels are held to K3_REL_BOUND, C1 to
    C1_REL_BOUND, K2 bf16 to K2_ABS_BOUND and K3 bf16 to K3_BF16_REL_BOUND.
    For each case it prints the max abs/rel error, the kernel's device time
@@ -163,8 +173,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    policy, set_branching(depth_strength=0.5, nmb_max_branches=6), the plan
    [14,18,22,26] x [1,1,1,1]; the segmented fused-multi path cold and
    warm: 6 keyframes, 5 finite similarities, the exact launches (tree step
-   28, K2 and K2_tail 1064, K3 6, C1 192: 32 a decode call), wall and
-   memory peak;
+   28, K2 and K2_tail 1064, K3 6, C1 192: 32 a decode call, M1 6356: 227
+   an MMDiT call, also in the report), wall and memory peak;
 13. the multi-GPU layer (distributed_phase), once the SD3 holder is
    dropped: one NCCL rank in this process on mesh (1,1) runs
    SDXL-Turbo 512²'s run_transition(fixed_seeds=[420, 421]) on the
@@ -181,8 +191,8 @@ Run from the root of a checkout, on a host with one NVIDIA Hopper GPU
    every collective through host memory, on one card). K2 at the two
    local shapes is timed in the kernel phases;
 14. prints one JSON line with every kernel entry's numbers (K1 rows, K1
-   tree step, K2 bf16 and f32, K3 f32 and bf16, J1 and its RGB route,
-   J2, J3, and K2 at the two meshes' local shapes), then the final line
+   tree step, K2 bf16 and f32, K3 f32 and bf16, C1, M1, J1 and its RGB
+   route, J2, J3, and K2 at the two meshes' local shapes), then the final line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the final line.
@@ -220,11 +230,23 @@ SEEDS = [420, 421]
 #     cuDNN's FFMA 2-4e-6 at K = 4608; one TF32 pass, cuDNN with
 #     allow_tf32, ~3e-4 and is shown to fail it; emulated on the CPU in
 #     tests/test_torch_conv.py).
+# M1: against the float64 expression (of the rounded x' where a residual
+#     precedes the norm), at least M1_ULP_SHARE of the norm's outputs within
+#     one bf16 rounding step and max |M1 - f64| <= M1_REL_BOUND * max |f64|
+#     (one bf16 step of the largest output: rounding to nearest reads up to
+#     half a step, 2^-8 of a value just above a power of two, and the row
+#     statistics' float32 sums in another order may tip a rounding to the
+#     other neighbour; the first card run read 2.1-3.2e-3, as the plain
+#     chain did); x' equal to the plain version's
+#     bit for bit (the same float32 product and sum); emulated on the CPU in
+#     tests/test_torch_adaln.py.
 K1_BOUND = {"bfloat16": 2e-2, "float32": 1e-5}
 K2_ABS_BOUND = 2e-2
 K3_REL_BOUND = 1e-4
 K3_BF16_REL_BOUND = 1e-2
 C1_REL_BOUND = 1e-5
+M1_ULP_SHARE = 0.999
+M1_REL_BOUND = 2.0 ** -7
 
 
 def _card_line() -> str:
@@ -294,6 +316,7 @@ def _check_wgmma_sass(counts: dict, kernel: str) -> None:
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int32": 132 * 128 * 2 * 1.98e9}
 GRAPH_LAUNCHES = 10  # launches per captured graph when timing device time
+L2_BYTES = 50 * 2 ** 20  # H100 SXM's L2
 _SIDE: dict = {}  # the one side stream of the timing warm-ups
 
 
@@ -736,6 +759,147 @@ def _conv_refusals(torch, g) -> None:
     print(f"C1 wrapper: {len(calls)} refusals raised (bf16, stride 2, Cin 4, a non-contiguous input)", flush=True)
 
 
+# M1 at SD3.5-Large 1024²'s rows: the image stream (4096 rows) and the text
+# stream (333) at the CFG batches of the edges (4) and of the segmented
+# scan's last segment (12), D = 2432
+M1_SHAPES = [(4, 4096, 2432), (12, 4096, 2432), (4, 333, 2432), (12, 333, 2432)]
+# the kernel's other instantiations: one load a thread in 6 warps (D 1536,
+# SD3.5-Medium's width), four in 8 warps (D 8192, the widest it takes), and
+# one warp with 23 of its 32 lanes dead (D 72)
+M1_WIDTHS = [(4, 4096, 1536), (2, 333, 8192), (3, 45, 72)]
+M1_MODES = ("ln_modulate", "gated_residual", "gated_residual+norm")
+
+
+def _ulp_bf16(torch, r):
+    """bf16's rounding step at |r| (float64): 2^(floor(log2 |r|) - 7)."""
+    _, e = torch.frexp(r)
+    return torch.ldexp(torch.ones_like(r), (e - 8).clamp_min(-133))
+
+
+def _adaln_case(torch, g, shape, mode: str) -> dict:
+    """M1 (mode: ln_modulate, gated_residual, or gated_residual with the
+    norm) on bf16 rows against the float64 expression (M1_ULP_SHARE,
+    M1_REL_BOUND) and x' against the plain version bit for bit; the share of
+    the norm's outputs bit-equal to the plain bf16 chain; device, one-call
+    and plain (the unfused PyTorch chain) ms, the bound (bytes over 3.35
+    TB/s: each row read once, each output written once, the vectors once)
+    and its share. The vectors are chunks of one [B, 6D] tensor, as the
+    adaLN linear gives them. Device times replay the call over `copies`
+    sets of inputs in turn, outputs kept, so that a replay touches at least
+    4x L2 and a small case reads device memory as it does in the MMDiT
+    (where the GEMMs between two calls evict its rows); at most 64 sets,
+    so the D = 72 case stays in L2 (it checks the arithmetic, not a time)."""
+    from latentblending_tpu_torch.ops import adaln
+
+    B, L, D = shape
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    y = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    shift, scale, gate = (torch.randn((B, 6 * D), generator=g, device="cuda") * 0.5).bfloat16().chunk(6, dim=1)[:3]
+    args = {"ln_modulate": (x, shift, scale), "gated_residual": (x, gate, y),
+            "gated_residual+norm": (x, gate, y, shift, scale)}[mode]
+    kernel, plain = ((adaln.ln_modulate, adaln.ln_modulate_reference) if mode == "ln_modulate"
+                     else (adaln.gated_residual, adaln.gated_residual_reference))
+    got, want_plain = kernel(*args), plain(*args)
+    case = {"shape": list(shape), "mode": mode, "finite": True, "x_out_bit_equal": None, "max_abs_err": 0.0,
+            "max_rel_err": None, "within_1_ulp_share": None}
+    if mode != "ln_modulate":
+        xk, xp = (got[0], want_plain[0]) if mode == "gated_residual+norm" else (got, want_plain)
+        case["x_out_bit_equal"] = bool(torch.equal(xk, xp))
+        case["max_abs_err"] = (xk.float() - xp.float()).abs().max().item()
+        case["finite"] = bool(torch.isfinite(xk).all())
+    if mode != "gated_residual":
+        src = x if mode == "ln_modulate" else got[0]
+        out, out_plain = (got, want_plain) if mode == "ln_modulate" else (got[1], want_plain[1])
+        xd = src.double()
+        ln = (xd - xd.mean(-1, keepdim=True)) * torch.rsqrt(xd.var(-1, unbiased=False, keepdim=True) + 1e-6)
+        want = ln * (1 + scale.double()[:, None]) + shift.double()[:, None]
+        del xd, ln
+        err = (out.double() - want).abs()
+        scale_max = want.abs().max().item()
+        case.update({"max_abs_err": err.max().item(), "max_rel_err": err.max().item() / scale_max,
+                     "within_1_ulp_share": (err <= _ulp_bf16(torch, want)).double().mean().item(),
+                     "plain_max_rel_err": (out_plain.double() - want).abs().max().item() / scale_max,
+                     "plain_bit_equal_share": (out == out_plain).double().mean().item(),
+                     "finite": case["finite"] and bool(torch.isfinite(out).all())})
+        del err, want
+    del got, want_plain
+    case["ok"] = (case["finite"] and case["x_out_bit_equal"] is not False
+                  and (mode == "gated_residual"
+                       or (case["within_1_ulp_share"] >= M1_ULP_SHARE and case["max_rel_err"] <= M1_REL_BOUND)))
+    rows = B * L * D * 2
+    nbytes = {"ln_modulate": 2 * rows + 2 * B * D * 2, "gated_residual": 3 * rows + B * D * 2,
+              "gated_residual+norm": 4 * rows + 3 * B * D * 2}[mode]
+    case.update(_bound(nbytes, 0, "bf16"))
+    copies = min(-(-4 * L2_BYTES // nbytes), 64)
+    sets = [args]
+    for _ in range(copies - 1):
+        base = torch.randn((B, 6 * D), generator=g, device="cuda").bfloat16().chunk(6, dim=1)
+        sets.append(tuple(base[i] if t.dim() == 2 else torch.randn_like(t, dtype=torch.float32).bfloat16()
+                          for i, t in enumerate(args)))
+    case["copies"] = copies
+    case["ms"] = _device_ms(torch, lambda: [kernel(*a) for a in sets]) / copies
+    case["call_ms"] = _median_ms(torch, lambda: kernel(*args))
+    case["plain_ms"] = _device_ms(torch, lambda: [plain(*a) for a in sets]) / copies
+    case["library_ms"] = None
+    case["bound_us"] = case["bound_ms"] * 1e3
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    del sets
+    print("M1 adaln bf16", json.dumps(case), flush=True)
+    if not case["ok"]:
+        raise AssertionError(f"M1 outside its bound (x' not the plain x', or the norm off the f64 expression): {case}")
+    return case
+
+
+def m1_cases(torch, g) -> list:
+    """M1's three forms at every SD3.5-Large 1024² row shape and at
+    M1_WIDTHS; the time an MMDiT call would spend in them at the image and
+    text shapes of a batch, beside the plain chain's."""
+    cases = [_adaln_case(torch, g, shape, mode) for shape in M1_SHAPES + M1_WIDTHS for mode in M1_MODES]
+    # a call of 38 blocks: the image stream's 38 norm1 and norm_out, 38
+    # residuals with the FF's norm and 38 without; the text stream's 38
+    # norm1_context, 37 and 37 (it ends at the last block's attention)
+    per_call = {"ln_modulate": (39, 38), "gated_residual": (38, 37), "gated_residual+norm": (38, 37)}
+    img, txt = M1_SHAPES[0][1], M1_SHAPES[2][1]
+    for B in (4, 12):
+        by = {(c["shape"][1], c["mode"]): c for c in cases if c["shape"][0] == B and c["shape"][2] == 2432}
+
+        def call_ms(key, rows=(img, txt)):
+            return sum(by[(L, m)][key] * n for m, counts in per_call.items() for L, n in zip((img, txt), counts)
+                       if L in rows)
+
+        m1, plain, bound = call_ms("ms"), call_ms("plain_ms"), call_ms("bound_ms")
+        img_share = call_ms("bound_ms", (img,)) / call_ms("ms", (img,))
+        print(f"M1 an MMDiT call at batch {B} ({sum(a + b for a, b in per_call.values())} launches): {m1:.3f} ms of "
+              f"M1 against {plain:.3f} ms of the plain chain ({plain / m1:.2f}x), bound {bound:.3f} ms "
+              f"({bound / m1:.1%}; the image rows' alone {img_share:.1%})", flush=True)
+    return cases
+
+
+def _adaln_refusals(torch, g) -> None:
+    """ln_modulate and gated_residual raise on CUDA inputs M1 does not take
+    (float32, a non-contiguous x, D = 12) and launch nothing."""
+    from latentblending_tpu_torch import profiling
+    from latentblending_tpu_torch.ops import adaln
+
+    x = torch.randn((2, 16, 64), generator=g, device="cuda").bfloat16()
+    v = torch.randn((2, 64), generator=g, device="cuda").bfloat16()
+    calls = [
+        (TypeError, lambda: adaln.ln_modulate(x.float(), v.float(), v.float())),
+        (ValueError, lambda: adaln.gated_residual(x.transpose(0, 1), v[:1], x.transpose(0, 1))),
+        (ValueError, lambda: adaln.ln_modulate(x[..., :12].contiguous(), v[:, :12], v[:, :12])),
+    ]
+    before = profiling.counter("M1")
+    for i, (error, call) in enumerate(calls):
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"M1 refusal {i}: expected {error.__name__}")
+    if profiling.counter("M1") != before:
+        raise AssertionError("a refused M1 call launched M1")
+    print(f"M1 wrapper: {len(calls)} refusals raised (float32, a non-contiguous x, D = 12)", flush=True)
+
+
 def kernel_phases(torch) -> dict:
     """Each kernel vs its plain version at the main path's shapes. The first
     case of each kernel is the one the kernels line reports."""
@@ -813,6 +977,8 @@ def kernel_phases(torch) -> dict:
     _attention_refusals(torch, g)
     res["C1"] = c1_cases(torch, g)
     _conv_refusals(torch, g)
+    res["M1"] = m1_cases(torch, g)
+    _adaln_refusals(torch, g)
     # cuBLAS keeps a workspace for each stream it ran on (the timing's side
     # and capture streams): release them, so the main path's peak memory
     # counts the main path's own allocations only
@@ -905,7 +1071,7 @@ def small_input_check(torch) -> None:
 
 # J1 and J3 count calls, J1_frames and J3_frames the frames those calls coded
 _COUNT_KEYS = ("K1_rows", "K1_tree", "K2", "K2_tail", "K2_f32", "K3", "K3_bf16", "J1", "J1_rgb", "J1_frames", "J2",
-               "J3", "J3_frames")
+               "J3", "J3_frames", "M1")
 
 
 _COUNTS_ZERO: dict = {}  # the profiling registry's counters at the last _zero_counts
@@ -968,7 +1134,8 @@ def _expected_launches(be, path: str, k2_per_eval: int, recycled: int = 0) -> di
     multiple of 128, so its launches are K2_tail ones too; every SDXL UNet
     attention length is); K3 once per VAE decode call (decode_chunk
     keyframes each; a recycled edge's keyframe is still decoded), in the
-    VAE's dtype."""
+    VAE's dtype; M1 6 L - 1 times per eval of an MMDiT of L blocks (its
+    adaLN norms and gated residuals)."""
     N = be.dh.num_inference_steps
     dc = be.dh.decode_chunk
     n_kf = 2 + sum(int(n) for n in be.list_nmb_stems)
@@ -987,6 +1154,8 @@ def _expected_launches(be, path: str, k2_per_eval: int, recycled: int = 0) -> di
         out.update({"K1_rows": edge_steps + sum(N - idx + 1 for idx, _ in rounds), k2: evals * k2_per_eval,
                     k3: _ceil(2, dc) + sum(_ceil(k, dc) for _, k in rounds)})
     out["K2_tail"] = out["K2"] if hasattr(be.dh, "mmdit") else 0
+    if hasattr(be.dh, "mmdit"):  # M1: 6 a block, 4 in the last, 1 in norm_out an MMDiT eval
+        out["M1"] = out["K2"] // k2_per_eval * (6 * be.dh.mmdit.cfg.num_layers - 1)
     return out
 
 
@@ -2499,6 +2668,11 @@ def sd3_phase(torch) -> dict:
         raise AssertionError(f"SD3.5-Large plan {plan}, expected {SD3_PLAN}")
     label = "SD3.5-Large predictive, fused-multi"
     run = _drive_path(torch, be, "fused-multi", label, dh.mmdit.cfg.num_layers)
+    in_report = be.last_report.counters.get("M1", 0)
+    print(f"{label}: M1 launches {run['counts']['M1']} ({6 * dh.mmdit.cfg.num_layers - 1} an MMDiT call), in the "
+          f"last run's report {in_report}", flush=True)
+    if in_report != run["counts"]["M1"]:
+        raise AssertionError(f"{label}: M1 {in_report} in the report, {run['counts']['M1']} counted")
     return {label: run["counts"]}
 
 
@@ -2874,6 +3048,10 @@ def _kernels_line(kres: dict, counts: dict, local: list) -> list:
         # no TPU kernel: the JAX package's convolutions are XLA's
         "C1": ("conv3x3_f32 (3xTF32 wgmma implicit GEMM, TMA input boxes, weights split per tile, bias in "
                "the epilogue)", "latentblending_tpu_torch/csrc/conv3x3_f32.cu", "none (XLA's convolutions)"),
+        # no TPU kernel: the JAX package has no SD3
+        "M1": ("adaln_bf16 (adaLN-Zero modulation and gated residuals, a row in a CTA's registers, the norm's "
+               "statistics reduced in the CTA)", "latentblending_tpu_torch/csrc/adaln_bf16.cu",
+               "none (no SD3 in the JAX package)"),
         # no TPU kernel: the work the JAX package does on the host through libjpeg
         "J1": ("jpeg_fdct_quant (libjpeg's islow DCT and quantize, from I420 or RGB)",
                "latentblending_tpu_torch/csrc/jpeg.cu", "latentblending_tpu/video/_jpeg_lerp.py:66"),
@@ -2944,6 +3122,10 @@ def main() -> int:
     if not fdct or any(c["local"] for c in fdct.values()):
         raise AssertionError(f"sass: J1's fdct_quant_kernel should use no local memory, got {fdct}")
     print("sass fdct_quant_kernel: no local memory", flush=True)
+    adaln_sass = {name: c for name, c in sass.items() if "adaln_kernel" in name}
+    if len(adaln_sass) != 9 or any(c["local"] for c in adaln_sass.values()):
+        raise AssertionError(f"sass: M1's 9 adaln_kernel instantiations should use no local memory, got {adaln_sass}")
+    print("sass adaln_kernel: 9 instantiations, no local memory", flush=True)
 
     j1_exact_cases(torch)
     kres = kernel_phases(torch)

@@ -17,7 +17,9 @@ last block is `context_pre_only`: its text stream ends at the attention.
 
 Numerics: the weights in the module's dtype (bf16 on the card), norms,
 modulation and softmax statistics in float32, results in the stream's
-dtype.
+dtype. Each adaLN norm and gated residual is one pass of M1
+(ops/adaln.py) on the card, which takes a bf16 stream only (it raises on
+anything else), and the unfused float32 expressions on the CPU.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from latentblending_tpu_torch.models.layers import RMSNorm, TimestepEmbedding, timestep_embedding
 from latentblending_tpu_torch.models.sd3_configs import MMDiTConfig
+from latentblending_tpu_torch.ops import adaln
 from latentblending_tpu_torch.ops.attention import flash_attention
 
 _EPS = 1e-6
@@ -47,15 +50,6 @@ def sincos_table(dim: int, grid: int, base: int) -> np.ndarray:
         return np.concatenate([np.sin(out), np.cos(out)], axis=1)
 
     return np.concatenate([one_d(dim // 2, gw), one_d(dim // 2, gh)], axis=1)
-
-
-def _modulate(norm_x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return norm_x * (1.0 + scale.float()[:, None]) + shift.float()[:, None]
-
-
-def _ln(x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm without affine parameters, eps 1e-6, in float32."""
-    return F.layer_norm(x.float(), (x.shape[-1],), eps=_EPS)
 
 
 class _AdaNormLinear(nn.Module):
@@ -127,24 +121,19 @@ class JointTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, c: torch.Tensor, temb: torch.Tensor) -> tuple:
         """(x image tokens, c text tokens) → (x, c), c None after a
         context_pre_only block."""
-        dt = x.dtype
         shift, scale, gate, shift_m, scale_m, gate_m = self.norm1(temb)
         if self.context_pre_only:
             # AdaLayerNormContinuous: scale first, then shift
             c_scale, c_shift = self.norm1_context(temb)
-            nc = _modulate(_ln(c), c_shift, c_scale).to(dt)
         else:
             c_shift, c_scale, c_gate, c_shift_m, c_scale_m, c_gate_m = self.norm1_context(temb)
-            nc = _modulate(_ln(c), c_shift, c_scale).to(dt)
-        ax, ac = self.attn(_modulate(_ln(x), shift, scale).to(dt), nc)
-        x = (x.float() + gate.float()[:, None] * ax.float()).to(dt)
-        ff = self.ff(_modulate(_ln(x), shift_m, scale_m).to(dt))
-        x = (x.float() + gate_m.float()[:, None] * ff.float()).to(dt)
+        ax, ac = self.attn(adaln.ln_modulate(x, shift, scale), adaln.ln_modulate(c, c_shift, c_scale))
+        x, nx = adaln.gated_residual(x, gate, ax, shift_m, scale_m)
+        x = adaln.gated_residual(x, gate_m, self.ff(nx))
         if self.context_pre_only:
             return x, None
-        c = (c.float() + c_gate.float()[:, None] * ac.float()).to(dt)
-        ffc = self.ff_context(_modulate(_ln(c), c_shift_m, c_scale_m).to(dt))
-        c = (c.float() + c_gate_m.float()[:, None] * ffc.float()).to(dt)
+        c, nc = adaln.gated_residual(c, c_gate, ac, c_shift_m, c_scale_m)
+        c = adaln.gated_residual(c, c_gate_m, self.ff_context(nc))
         return x, c
 
 
@@ -174,7 +163,9 @@ class _PatchEmbed(nn.Module):
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         y = self.proj(sample.to(self.proj.weight.dtype))
         b, d, h, w = y.shape
-        y = y.flatten(2).transpose(1, 2)
+        # token rows contiguous: the blocks' residual stream keeps this layout,
+        # and M1 takes contiguous rows
+        y = y.flatten(2).transpose(1, 2).contiguous()
         return (y.float() + self.table(h, w, y.device)).to(y.dtype)
 
 
@@ -198,7 +189,7 @@ class _NormOut(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         scale, shift = self.linear(F.silu(temb)).chunk(2, dim=1)
-        return _modulate(_ln(x), shift, scale).to(x.dtype)
+        return adaln.ln_modulate(x, shift, scale)
 
 
 class MMDiT(nn.Module):

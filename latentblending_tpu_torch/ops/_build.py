@@ -44,6 +44,10 @@ _SIGNATURES = {
     "lb_attention_fwd_d512_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "lb_attention_fwd_d512_bf16": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "lb_conv3x3_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "lb_adaln_modulate_bf16": [_P, _P, ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               _P],
+    "lb_gated_residual_bf16": [_P, _P, ctypes.c_int64, _P, _P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, _P],
     "lb_jpeg_fdct_quant": [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "lb_jpeg_coef_lerp": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_int, _P],
     "lb_jpeg_huff_count": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
